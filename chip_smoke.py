@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, one line each, in order; any failure raises and exits non-zero:
+Phases, one line each, in order; any failure raises and exits non-zero.
+Each main path runs with the launch counts zeroed just before it and read
+just after, and fails unless every kernel of that path launched:
   1. device  card name, count and power limit (`nvidia-smi`)
   2. build   nvcc build of impg_tpu_torch/csrc (time, registers, spills)
   3. kernels each CUDA kernel against its plain-torch twin on the card,
@@ -14,12 +16,27 @@ Phases, one line each, in order; any failure raises and exits non-zero:
              TorchDeviceEngine on a yeast-fitted synthetic index of 250,000
              alignments, then the seeds' region depth (`stats` path) through
              the same engine; rows equal (as sorted multisets per walk) to
-             the native C++ engine's, depths equal to the index's stab, and
-             every kernel's launch count from that run above zero
+             the native C++ engine's, depths equal to the index's stab
      profile one more warm BFS under cProfile and torch.profiler: host
              frames against device time, and the device's idle share
-  5. cli     `python -m impg_tpu_torch.cli` query -x -o bed|paf and stats -b,
-             --compute-engine device byte-identical to host
+  3. kernels K-E project_approx against its twin on the first lane chunk
+             of the approximate depth-2 frontier, lean and full fields
+  4. approx  the same seeds, depth 2, approximate (tracepoint) walks
+             through TorchDeviceEngine(with_tracepoints=True) (K-B, K-E,
+             K-D; no CIGAR arena uploaded); rows equal to the native
+             engine's approximate rows
+  3. kernels K-C and K-D over one page of the paged engine against their
+             twins
+  4. paged   the same seeds, depth 2, exact, then their region depth,
+             through TorchPagedEngine under a budget of a third of the lean
+             index bytes (>= 8 pages, LRU evictions); rows equal to the
+             native engine's, depths to the index's stab
+  5. cli     impg_tpu_torch.cli's query -x -o bed|paf, stats -b, query -x
+             --approximate -o bed, and query -x -o bed and stats -b under
+             IMPG_HBM_BUDGET_BYTES=16384 (paged): --compute-engine device,
+             run in this process with its launches counted, byte-identical
+             to host (`python -m impg_tpu_torch.cli` in a subprocess), each
+             through the expected engine and kernels
 The last two lines are the kernel table and the result as JSON.  Imports
 only impg_tpu_torch (whose host half is impg_tpu's JAX-free numpy/C++ code,
 see impg_tpu_torch/host.py) and, for phase 5's demo data, examples/: the
@@ -28,8 +45,10 @@ machine with the card has no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import cProfile
 import importlib.util
+import io
 import json
 import os
 import pstats
@@ -52,6 +71,9 @@ N_SEQS = 2000
 # time inside the run's limit.
 N_ALN = 250_000
 N_SEEDS = 256
+# The paged phase's budget: this share of the index's lean bytes.
+PAGED_SHARE = 3
+DEVICE = torch.device("cuda", 0)
 
 
 def _bind_repo() -> None:
@@ -133,6 +155,84 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.long() - b.long()).abs().max())
 
 
+def print_kernel_rows(rows: dict) -> None:
+    for name, r in rows.items():
+        print(f"[3 kernels] {name} {r['shape']}: tolerance=0 (integers) "
+              f"max_abs_err={r['max_abs_err']}"
+              f" kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f}",
+              flush=True)
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"{name}: kernel disagrees with plain twin")
+
+
+def check_lanes(project, project_plain, largs, lkw) -> tuple:
+    """A lane kernel (K-C or K-E) against its twin on the same lanes: the
+    valid bytes everywhere, the rows on the valid lanes.  Returns the
+    kernel's (valid, rows) and its table row."""
+    valid, lrows = project(*largs, **lkw)
+    p_valid, p_rows = project_plain(*largs, **lkw)
+    sel = torch.nonzero(p_valid, as_tuple=True)[0]
+    err = max(max_abs_err(valid, p_valid),
+              max_abs_err(lrows[:, sel], p_rows[:, sel]))
+    ms, pms = time_pair(lambda: project(*largs, **lkw),
+                        lambda: project_plain(*largs, **lkw))
+    return valid, lrows, dict(
+        max_abs_err=err, ms=ms, plain_ms=pms,
+        shape=f"{lkw['n_lanes']} lanes x {lrows.shape[0]} fields",
+        valid=int(sel.numel()),
+    )
+
+
+def check_compact(D, valid, lrows) -> dict:
+    hits = D.compact(valid, lrows)
+    err = max_abs_err(hits, D.compact_plain(valid, lrows))
+    ms, pms = time_pair(lambda: D.compact(valid, lrows),
+                        lambda: D.compact_plain(valid, lrows))
+    return dict(
+        max_abs_err=err, ms=ms, plain_ms=pms,
+        shape=f"{valid.shape[0]} lanes -> {hits.shape[1]} x {hits.shape[0]}",
+    )
+
+
+def first_chunk(D, d, batch, lane_budget: int):
+    """K-B over a frontier batch on index `d`, then the (args, kwargs) of
+    its first lane chunk for a lane kernel, with clip_overlap as the
+    transitive walk calls it."""
+    fq = [torch.from_numpy(a).to(d.device) for a in batch]
+    win_lo, k = D.stab_windows(d.tgt_offsets, d.t_start, d.cummax_te, *fq,
+                               d.window_iters)
+    offs, offs_h = D.lane_offsets(k)
+    q0, q1 = next(D.lane_chunks(offs_h, lane_budget))
+    largs = (d, offs[q0:q1 + 1], win_lo[q0:q1], fq[1][q0:q1], fq[2][q0:q1])
+    lkw = dict(q_base=q0, lane_base=int(offs_h[q0]),
+               n_lanes=int(offs_h[q1] - offs_h[q0]), clip_overlap=True)
+    return fq, largs, lkw
+
+
+def check_launches(label: str, launches: dict, path: tuple) -> None:
+    """Every kernel of the path launched in its run; no other did."""
+    missing = [k for k in path if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: main path never launched {missing}")
+    stray = [k for k, n in launches.items() if n and k not in path]
+    if stray:
+        raise AssertionError(f"{label}: launched kernels off its path {stray}")
+
+
+def walk_rows_equal(label: str, blocks, ref) -> int:
+    """Rows of each walk equal the reference's as sorted multisets; returns
+    the row count."""
+    if len(ref) != len(blocks):
+        raise AssertionError(f"{label}: walk count differs from reference")
+    for w, (g, r) in enumerate(zip(blocks, ref)):
+        if not np.array_equal(_sorted_rows(g), _sorted_rows(r)):
+            raise AssertionError(f"{label}: walk {w} rows differ from native")
+    n_rows = sum(len(b) for b in blocks)
+    if n_rows <= len(blocks):
+        raise AssertionError(f"{label}: no hits beyond the seeds")
+    return n_rows
+
+
 def phase_device() -> dict:
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -159,9 +259,10 @@ def phase_build(kernels) -> None:
           flush=True)
 
 
-def phase_kernels(eng, index, targets, kernels, D, SC, host) -> dict:
+def phase_kernels(eng, index, targets, D, SC, host):
     """Each kernel vs its plain twin on the card (exact); the BFS run here
-    captures the depth-2 frontier and warms the path for phase 4."""
+    captures the depth-2 frontier and warms the path for phase 4.  Returns
+    the table rows and the frontier batch."""
     dev = eng.device
     d = eng.dindex
     rec = Recorder(eng)
@@ -192,7 +293,7 @@ def phase_kernels(eng, index, targets, kernels, D, SC, host) -> dict:
                               hits=int(got.long().sum()))
 
     # K-B over the whole depth-2 frontier.
-    fq = [torch.from_numpy(a).to(dev) for a in front]
+    fq, largs, lkw = first_chunk(D, d, front, eng.lane_budget)
     wargs = (d.tgt_offsets, d.t_start, d.cummax_te, *fq, d.window_iters)
     win_lo, k = D.stab_windows(*wargs)
     p_lo, p_k = D.stab_windows_plain(*wargs)
@@ -203,47 +304,16 @@ def phase_kernels(eng, index, targets, kernels, D, SC, host) -> dict:
                            shape=f"{front[0].size} queries")
 
     # K-C and K-D on the frontier's first lane chunk, lean then full fields.
-    offs = torch.zeros(k.shape[0] + 1, dtype=torch.int64, device=dev)
-    offs[1:] = torch.cumsum(k, 0)
-    offs_h = offs.cpu().numpy()
-    q0, q1 = next(eng._chunks(offs_h))
-    n_lanes = int(offs_h[q1] - offs_h[q0])
     for label, fields in (("lean", host.LEAN_FIELDS), ("full", None)):
         mask = D.field_mask(D.RESULT_FIELDS if fields is None else fields)
         if mask & D._STATS_MASK:
             eng._ensure_stats()
-        largs = (d, offs[q0:q1 + 1], win_lo[q0:q1], fq[1][q0:q1], fq[2][q0:q1])
-        lkw = dict(q_base=q0, lane_base=int(offs_h[q0]), n_lanes=n_lanes,
-                   clip_overlap=True, mask=mask)
-        valid, lrows = D.project_lanes(*largs, **lkw)
-        p_valid, p_rows = D.project_lanes_plain(*largs, **lkw)
-        sel = torch.nonzero(p_valid, as_tuple=True)[0]
-        err = max(max_abs_err(valid, p_valid),
-                  max_abs_err(lrows[:, sel], p_rows[:, sel]))
-        ms, pms = time_pair(lambda: D.project_lanes(*largs, **lkw),
-                            lambda: D.project_lanes_plain(*largs, **lkw))
-        rows[f"project_lanes/{label}"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=pms,
-            shape=f"{n_lanes} lanes x {lrows.shape[0]} fields",
-            valid=int(sel.numel()),
+        valid, lrows, rows[f"project_lanes/{label}"] = check_lanes(
+            D.project_lanes, D.project_lanes_plain, largs, dict(lkw, mask=mask)
         )
-        hits = D.compact(valid, lrows)
-        p_hits = D.compact_plain(valid, lrows)
-        err = max_abs_err(hits, p_hits)
-        ms, pms = time_pair(lambda: D.compact(valid, lrows),
-                            lambda: D.compact_plain(valid, lrows))
-        rows[f"compact/{label}"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=pms,
-            shape=f"{n_lanes} lanes -> {hits.shape[1]} x {hits.shape[0]}",
-        )
-    for name, r in rows.items():
-        print(f"[3 kernels] {name} {r['shape']}: tolerance=0 (integers) "
-              f"max_abs_err={r['max_abs_err']}"
-              f" kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f}",
-              flush=True)
-        if r["max_abs_err"] != 0:
-            raise AssertionError(f"{name}: kernel disagrees with plain twin")
-    return rows
+        rows[f"compact/{label}"] = check_compact(D, valid, lrows)
+    print_kernel_rows(rows)
+    return rows, front
 
 
 def _sorted_rows(block) -> np.ndarray:
@@ -253,11 +323,11 @@ def _sorted_rows(block) -> np.ndarray:
     return cols[np.lexsort(cols.T[::-1])]
 
 
-def phase_slice(eng, index, targets, kernels, D, host,
-                upload_lean_bytes) -> dict:
+def phase_slice(eng, index, targets, kernels, D, host, upload_lean_bytes):
     """The main path with the launch counts zeroed around it: the depth-2
     transitive BFS of every seed (`query -x`), then the region depth of the
-    seeds' own ranges (`stats -r/-b`), both through the one engine."""
+    seeds' own ranges (`stats -r/-b`), both through the one engine.
+    Returns the launch counts and the native engine's exact rows."""
     rec = Recorder(eng)
     q = [np.asarray([t[i] for t in targets], np.int32) for i in range(3)]
     torch.cuda.synchronize()
@@ -272,9 +342,8 @@ def phase_slice(eng, index, targets, kernels, D, host,
     depth = eng.stab_counts(*q)
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
+    check_launches("slice", launches,
+                   ("stab_count", "windows", "project_lanes", "compact"))
     lanes = []
     d = eng.dindex
     for batch in rec.batches:
@@ -294,14 +363,7 @@ def phase_slice(eng, index, targets, kernels, D, host,
         device_engine=host.NativeHostEngine(index), columnar=True,
     )
     native_s = time.perf_counter() - t1
-    n_rows = sum(len(b) for b in blocks)
-    if len(native) != len(blocks):
-        raise AssertionError("walk count differs from the native engine")
-    for w, (g, r) in enumerate(zip(blocks, native)):
-        if not np.array_equal(_sorted_rows(g), _sorted_rows(r)):
-            raise AssertionError(f"walk {w}: rows differ from native engine")
-    if n_rows <= len(targets):
-        raise AssertionError("slice produced no hits beyond the seeds")
+    n_rows = walk_rows_equal("slice", blocks, native)
     print(
         f"[4 slice] seeds={len(targets)} depth=2 rows={n_rows} "
         f"wall_s={dt:.3f} seeds_per_s={len(targets) / dt:.2f} "
@@ -314,7 +376,7 @@ def phase_slice(eng, index, targets, kernels, D, host,
         f"launches={json.dumps(launches)}",
         flush=True,
     )
-    return launches
+    return launches, native
 
 
 def _frame_times(stats: dict, name: str, path: str):
@@ -377,7 +439,150 @@ def phase_profile(eng, index, targets, host) -> None:
     )
 
 
-def phase_cli(tmp: str) -> None:
+def phase_approx(index, targets, kernels, D, host) -> tuple:
+    """Approximate (tracepoint) walks: the tracepoint build and upload, K-E
+    against its twin on the approximate depth-2 frontier, then the main
+    path with the counts zeroed around it, against the native engine's
+    approximate rows.  Returns the table rows and the path's counts."""
+    t0 = time.perf_counter()
+    tp = index.ensure_tracepoints()
+    tp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = D.TorchDeviceEngine(index, DEVICE, with_tracepoints=True)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    tp_bytes = sum(t.numel() * t.element_size()
+                   for t in eng.dindex.tp.values())
+    print(f"[setup] tracepoints: spacing={tp.spacing} "
+          f"boundaries={tp.q_bound.size} build_s={tp_s:.1f} "
+          f"tp_device_bytes={tp_bytes} engine_upload_s={up_s:.2f}",
+          flush=True)
+
+    # Warm-up walk; its largest depth batch is the K-E check's frontier.
+    rec = Recorder(eng)
+    host.query_transitive_bfs_many(index, targets, max_depth=2,
+                                   device_engine=rec, columnar=True,
+                                   approximate=True)
+    front = max(rec.batches, key=lambda b: b[0].size)
+    _, largs, lkw = first_chunk(D, eng.dindex, front, eng.lane_budget)
+    rows = {}
+    for label, fields in (("lean", host.LEAN_FIELDS), ("full", D.RESULT_FIELDS)):
+        _, _, rows[f"project_approx/{label}"] = check_lanes(
+            D.project_approx_lanes, D.project_approx_lanes_plain, largs,
+            dict(lkw, mask=D.field_mask(fields)),
+        )
+    print_kernel_rows(rows)
+
+    rec = Recorder(eng)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    blocks = host.query_transitive_bfs_many(
+        index, targets, max_depth=2, device_engine=rec, columnar=True,
+        approximate=True,
+    )
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    check_launches("approx", launches,
+                   ("windows", "project_approx", "compact"))
+    if eng.dindex.arena:
+        raise AssertionError("approx: the CIGAR arena was uploaded")
+    t1 = time.perf_counter()
+    native = host.query_transitive_bfs_many(
+        index, targets, max_depth=2,
+        device_engine=host.NativeHostEngine(index), columnar=True,
+        approximate=True,
+    )
+    native_s = time.perf_counter() - t1
+    n_rows = walk_rows_equal("approx", blocks, native)
+    print(
+        f"[4 approx] seeds={len(targets)} depth=2 rows={n_rows} "
+        f"tp_build_s={tp_s:.1f} boundaries={tp.q_bound.size} "
+        f"tp_device_bytes={tp_bytes} wall_s={dt:.3f} "
+        f"seeds_per_s={len(targets) / dt:.2f} in_engine_s={rec.engine_s:.3f} "
+        f"native_cpu_s={native_s:.3f} rows_equal_native=True "
+        f"resident_bytes={eng.dindex.nbytes()} "
+        f"launches={json.dumps(launches)}",
+        flush=True,
+    )
+    return rows, launches
+
+
+def phase_paged(index, targets, front, native, kernels, D, host):
+    """The paged engine under a third of the lean bytes: K-C and K-D over
+    one page against their twins, then the exact main path (`query -x`,
+    then `stats -r/-b`) with the counts zeroed around it, against the
+    native engine's rows and the index's stab.  Returns the table rows."""
+    from impg_tpu_torch.query.paged import TorchPagedEngine
+
+    dev = DEVICE
+    lean = index.arena.n_ops * 20 + len(index.records) * 36
+    budget = lean // PAGED_SHARE
+
+    # K-C and K-D over the first lane chunk of the first page the exact
+    # depth-2 frontier touches, on an engine of its own.
+    peng = TorchPagedEngine(index, dev, hbm_budget_bytes=budget)
+    ri = peng.rindex
+    fq = [torch.from_numpy(a).to(dev) for a in front]
+    win_lo, k = D.stab_windows(ri.tgt_offsets, ri.t_start, ri.cummax_te, *fq,
+                               ri.window_iters)
+    page, _base, _sq, offs, offs_h, lo_rel, p_qs, p_qe = next(
+        peng.page_lanes(fq[1], fq[2], win_lo.cpu().numpy(), k.cpu().numpy())
+    )
+    c0, c1 = next(D.lane_chunks(offs_h, peng.lane_budget))
+    largs = (page, offs[c0:c1 + 1], lo_rel[c0:c1], p_qs[c0:c1], p_qe[c0:c1])
+    lkw = dict(q_base=c0, lane_base=int(offs_h[c0]),
+               n_lanes=int(offs_h[c1] - offs_h[c0]), clip_overlap=True,
+               mask=D.field_mask(host.LEAN_FIELDS + ("pair_q",)))
+    rows = {}
+    valid, lrows, rows["project_lanes/page"] = check_lanes(
+        D.project_lanes, D.project_lanes_plain, largs, lkw
+    )
+    rows["compact/page"] = check_compact(D, valid, lrows)
+    print_kernel_rows(rows)
+    del peng, page, largs, valid, lrows
+    torch.cuda.empty_cache()
+
+    eng = TorchPagedEngine(index, dev, hbm_budget_bytes=budget)
+    rec = Recorder(eng)
+    q = [np.asarray([t[i] for t in targets], np.int32) for i in range(3)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    blocks = host.query_transitive_bfs_many(
+        index, targets, max_depth=2, device_engine=rec, columnar=True
+    )
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    depth = eng.stab_counts(*q)
+    launches = kernels.launch_counts()
+    check_launches("paged", launches,
+                   ("stab_count", "windows", "project_lanes", "compact"))
+    n_rows = walk_rows_equal("paged", blocks, native)
+    exp = [index.stab(t, s, e).size for t, s, e in targets]
+    if not np.array_equal(depth, np.asarray(exp)):
+        raise AssertionError("paged: region depth differs from the index's stab")
+    if eng.n_pages < 8 or eng.evictions == 0:
+        raise AssertionError(f"paged: {eng.n_pages} pages, {eng.evictions} "
+                             "evictions (want >= 8 pages and evictions)")
+    if len(eng._pages) * eng.page_bytes_each > eng.budget:
+        raise AssertionError("paged: resident pages exceed the budget")
+    print(
+        f"[4 paged] seeds={len(targets)} depth=2 rows={n_rows} "
+        f"lean_bytes={lean} budget={budget} pages={eng.n_pages} "
+        f"page_bytes_each={eng.page_bytes_each} uploads={eng.uploads} "
+        f"evictions={eng.evictions} h2d_bytes={eng.h2d_bytes} "
+        f"page_build_s={eng.page_build_s:.3f} wall_s={dt:.3f} "
+        f"seeds_per_s={len(targets) / dt:.2f} in_engine_s={rec.engine_s:.3f} "
+        f"rows_equal_native=True region_depth_equal_stab=True "
+        f"launches={json.dumps(launches)}",
+        flush=True,
+    )
+    return rows
+
+
+def phase_cli(tmp: str, kernels) -> None:
     # examples/make_data.py imports tests/datagen.py.  tests/ has no
     # __init__.py, so it is bound as the `tests` package by hand: an
     # installed package named `tests` would otherwise shadow it.
@@ -390,33 +595,89 @@ def phase_cli(tmp: str) -> None:
     make_data = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(make_data)
     make_data.main(tmp)
-    env = dict(os.environ, PYTHONPATH=REPO)
 
-    def cli(*argv):
+    from impg_tpu_torch import cli as tcli
+    from impg_tpu_torch.query.paged import TorchPagedEngine
+
+    def on_host(argv):
         r = subprocess.run(
-            [sys.executable, "-m", "impg_tpu_torch.cli", *argv],
-            cwd=tmp, env=env, capture_output=True, text=True, timeout=600,
+            [sys.executable, "-m", "impg_tpu_torch.cli", *argv,
+             "--compute-engine", "host"],
+            cwd=tmp, env=dict(os.environ, PYTHONPATH=REPO),
+            capture_output=True, text=True, timeout=600,
         )
         if r.returncode != 0:
             raise RuntimeError(f"cli {argv} rc={r.returncode}: {r.stderr}")
         return r.stdout
 
+    def on_device(argv, env):
+        """The CLI in this process, so that its launches are counted;
+        returns its stdout, launch counts and the engines it resolved."""
+        engines = []
+        resolve = tcli.resolve_compute_engine
+
+        def recording(*a, **kw):
+            engines.append(resolve(*a, **kw))
+            return engines[-1]
+
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        tcli.resolve_compute_engine = recording
+        out = io.StringIO()
+        try:
+            kernels.reset_launch_counts()
+            with contextlib.redirect_stdout(out):
+                rc = tcli.main([*argv, "--compute-engine", "device"],
+                               device=DEVICE)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+        finally:
+            tcli.resolve_compute_engine = resolve
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        if rc != 0:
+            raise RuntimeError(f"cli {argv} rc={rc}")
+        return out.getvalue(), launches, engines
+
     paf = os.path.join(tmp, "pan.paf")
+    walk = ["query", "-a", paf, "-r", "ref:2000-8000", "-d", "100", "-x"]
+    stats = ["stats", "-a", paf, "-b", os.path.join(tmp, "regions.bed")]
+    # A third of the demo index's lean bytes (2,718 runs x 20 + 8 records
+    # x 36 = 54,648): the resolver pages it.
+    paged = {"IMPG_HBM_BUDGET_BYTES": "16384"}
+    exact = ("windows", "project_lanes", "compact")
+    # label -> (argv, environment of the device run, engine, kernels)
     checks = {
-        "query -x -o bed": ["query", "-a", paf, "-r", "ref:2000-8000", "-d",
-                            "100", "-x", "-o", "bed"],
-        "query -x -o paf": ["query", "-a", paf, "-r", "ref:2000-8000", "-d",
-                            "100", "-x", "-o", "paf"],
-        "stats -b": ["stats", "-a", paf, "-b",
-                     os.path.join(tmp, "regions.bed")],
+        "query -x -o bed": (walk + ["-o", "bed"], {}, "resident", exact),
+        "query -x -o paf": (walk + ["-o", "paf"], {}, "resident", exact),
+        "stats -b": (stats, {}, "resident", ("stab_count",)),
+        "query -x --approximate -o bed": (
+            walk + ["--approximate", "-o", "bed"], {}, "tracepoints",
+            ("windows", "project_approx", "compact")),
+        "query -x -o bed, paged": (walk + ["-o", "bed"], paged, "paged",
+                                   exact),
+        "stats -b, paged": (stats, paged, "paged", ("stab_count",)),
     }
     parts = []
-    for label, argv in checks.items():
-        on_host = cli(*argv, "--compute-engine", "host")
-        dev = cli(*argv, "--compute-engine", "device")
-        if dev != on_host or len(dev.splitlines()) < 2:
+    for label, (argv, env, kind, path) in checks.items():
+        ref = on_host(argv)
+        dev, launches, engines = on_device(argv, env)
+        if dev != ref or len(dev.splitlines()) < 2:
             raise AssertionError(f"{label}: device output != host output")
-        parts.append(f"{label}: {len(dev.splitlines())} lines identical")
+        if len(engines) != 1:
+            raise AssertionError(f"{label}: resolved {len(engines)} engines")
+        eng = engines[0]
+        got = ("paged" if isinstance(eng, TorchPagedEngine) else
+               "tracepoints" if eng.supports_approximate else "resident")
+        if got != kind:
+            raise AssertionError(f"{label}: ran the {got} engine, not {kind}")
+        check_launches(f"cli {label}", launches, path)
+        pages = f" ({eng.n_pages} pages)" if kind == "paged" else ""
+        parts.append(f"{label}: {len(dev.splitlines())} lines identical, "
+                     f"{kind} engine{pages}, launches {json.dumps(launches)}")
     print("[5 cli] " + "; ".join(parts), flush=True)
 
 
@@ -432,6 +693,7 @@ def main() -> int:
     from impg_tpu_torch.query import device as D
     from impg_tpu_torch.synth import realistic_directed_index
 
+    t_start = time.perf_counter()
     dev_info = phase_device()
     phase_build(kernels)
 
@@ -446,22 +708,34 @@ def main() -> int:
           f"2500000 (DeviceIndex int32 ceiling 2^31 runs; generation time)",
           flush=True)
     t0 = time.perf_counter()
-    eng = D.TorchDeviceEngine(index, device=torch.device("cuda", 0))
+    eng = D.TorchDeviceEngine(index, device=DEVICE)
     torch.cuda.synchronize()
     lean_bytes = eng.dindex.nbytes()
     print(f"[setup] upload {lean_bytes} bytes (lean) in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
     targets = scale_queries(len(index.seq_index), N_SEEDS)
 
-    rows = phase_kernels(eng, index, targets, kernels, D, SC, host)
-    launches = phase_slice(eng, index, targets, kernels, D, host,
-                           lean_bytes)
+    rows, front = phase_kernels(eng, index, targets, D, SC, host)
+    launches, native = phase_slice(eng, index, targets, kernels, D, host,
+                                   lean_bytes)
     phase_profile(eng, index, targets, host)
+    del eng
+    torch.cuda.empty_cache()
+    approx_rows, approx_launches = phase_approx(index, targets, kernels, D,
+                                                host)
+    rows.update(approx_rows)
+    launches["project_approx"] = approx_launches["project_approx"]
+    torch.cuda.empty_cache()
+    rows.update(phase_paged(index, targets, front, native, kernels, D, host))
     tmp = tempfile.mkdtemp(prefix="impg_smoke_")
     try:
-        phase_cli(tmp)
+        phase_cli(tmp, kernels)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    jax = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
+    if jax:
+        raise AssertionError(f"the port's paths imported JAX: {jax[:5]}")
+    print(f"[done] smoke_s={time.perf_counter() - t_start:.1f}", flush=True)
 
     table = [
         ("stab_count", "stab_count", "impg_tpu_torch/csrc/stab_count.cu",
@@ -473,6 +747,9 @@ def main() -> int:
          "impg_tpu/query/device.py:512"),
         ("compact", "compact/lean", "impg_tpu_torch/csrc/compact.cu",
          "impg_tpu/query/device.py:209"),
+        ("project_approx", "project_approx/lean",
+         "impg_tpu_torch/csrc/project_approx.cu",
+         "impg_tpu/query/device.py:393"),
     ]
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,

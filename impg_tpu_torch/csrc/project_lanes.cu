@@ -26,6 +26,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lanes.cuh"
+
+using namespace impg_lanes;
+
 namespace {
 constexpr int kThreads = 256;
 // Returned by an entry point that launched nothing (empty input); see
@@ -33,13 +37,6 @@ constexpr int kThreads = 256;
 constexpr int kNoLaunch = -1;
 constexpr int32_t kLenMask = (1 << 29) - 1;
 constexpr int32_t kOpEq = 0, kOpX = 1, kOpI = 2, kOpD = 3, kOpM = 4;
-
-// RESULT_FIELDS order (impg_tpu/query/device.py).
-enum Field {
-  kPairRec = 0, kPairQ, kValid, kQueryId, kPqStart, kPqEnd, kPtStart, kPtEnd,
-  kFirstRun, kLastRun, kFirstClip, kLastRem, kMatches, kMismatches, kICount,
-  kDCount, kIBp, kDBp,
-};
 
 struct Arena {
   const int32_t* runs;
@@ -61,14 +58,6 @@ __device__ __forceinline__ int32_t gather(const int32_t* a, int64_t i,
   i = i < 0 ? 0 : (i >= n ? n - 1 : i);
   return __ldg(a + i);
 }
-
-__device__ __forceinline__ void put(int32_t* rows, uint32_t mask, int f,
-                                    int64_t n_lanes, int64_t l, int32_t v) {
-  if ((mask >> f) & 1u) {
-    const int row = __popc(mask & ((1u << f) - 1u));
-    rows[static_cast<int64_t>(row) * n_lanes + l] = v;
-  }
-}
 }  // namespace
 
 extern "C" __global__ void impg_k_project_lanes(
@@ -84,13 +73,7 @@ extern "C" __global__ void impg_k_project_lanes(
   const int64_t l = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (l >= n_lanes) return;
   const int64_t gl = lane_base + l;
-  // First index in [0, nq] whose offset exceeds gl; lane_off[nq] > gl always.
-  int32_t a = 0, b = nq;
-  while (a < b) {
-    const int32_t mid = a + (b - a) / 2;
-    if (lane_off[mid] > gl) b = mid; else a = mid + 1;
-  }
-  const int32_t q = a - 1;
+  const int32_t q = lane_query(lane_off, nq, gl);
   const int32_t rec = win_lo[q] + static_cast<int32_t>(gl - lane_off[q]);
   const int32_t qs = q_s[q];
   const int32_t qe = q_e[q];

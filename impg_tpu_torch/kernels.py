@@ -27,14 +27,18 @@ import subprocess
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-SOURCES = ("stab_count.cu", "windows.cu", "project_lanes.cu", "compact.cu")
+SOURCES = ("stab_count.cu", "windows.cu", "project_lanes.cu", "compact.cu",
+           "project_approx.cu")
+# Headers the sources include; hashed with them, never compiled alone.
+HEADERS = ("lanes.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # Launch counters, one per kernel (one count per wrapper call that launched).
-KERNELS = ("stab_count", "windows", "project_lanes", "compact")
+KERNELS = ("stab_count", "windows", "project_lanes", "compact",
+           "project_approx")
 # An entry point's return when it launched nothing (kNoLaunch in csrc/).
 NO_LAUNCH = -1
 
@@ -49,6 +53,12 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
         _I32, _I32, ctypes.c_uint32, _P, _P, _P,
+    ),
+    "impg_project_approx": (
+        _P, _I32, _I64, _I64, _P, _P, _P, _I32,
+        _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I32,
+        _I32, ctypes.c_uint32, _P, _P, _P,
     ),
     "impg_compact_count": (_P, _I64, _P, _P),
     "impg_compact_scatter": (_P, _I64, _P, _P, _P, _I32, _I64, _P, _P),
@@ -80,7 +90,7 @@ def _nvcc() -> str:
 
 def _source_key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as fh:
             h.update(name.encode() + b"\0" + fh.read())
     return h.hexdigest()[:16]

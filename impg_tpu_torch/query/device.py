@@ -17,6 +17,10 @@ answered by three hand-written kernels and two pieces of torch glue:
   4. K-D `compact` (csrc/compact.cu): order-preserving stream compaction of
      the valid lanes into [n_fields, n_hits], then one device->host copy.
 
+Approximate (tracepoint) walks replace step 3 with K-E `project_approx`
+(csrc/project_approx.cu): the same exact lanes, hit gate and clip, then the
+tracepoint closed form of ops/approx.py over the index's tracepoint columns.
+
 Hits therefore come out query-major, then in ascending record order, like
 both JAX paths (windowed and slotted).  Lanes are enumerated exactly, so the
 JAX engine's k_max / cap doubling ladders and its windowed / slotted split
@@ -34,7 +38,7 @@ import numpy as np
 import torch
 
 from impg_tpu_torch import kernels
-from impg_tpu_torch.ops import projection
+from impg_tpu_torch.ops import approx, projection
 from impg_tpu_torch.ops.stab_count import stab_counts
 from impg_tpu_torch.ops.xfer import check_device, upload_i32
 
@@ -123,6 +127,8 @@ class TorchDeviceIndex:
     search_iters: int  # 2**iters > max op_cnt
     window_iters: int  # 2**iters > max records per target
     device: torch.device
+    tp: dict | None = None  # TP_KEYS, for approximate (tracepoint) walks
+    tp_spacing: int = 0
 
     RECORD_KEYS = (
         "target_id", "t_start", "t_end", "strand", "query_id", "op_off",
@@ -132,14 +138,27 @@ class TorchDeviceIndex:
     STATS_KEYS = (
         "cum_match", "cum_mm", "cum_icnt", "cum_dcnt", "cum_ibp", "cum_dbp",
     )
+    # Tracepoint columns, named as in the JAX DeviceIndex.tp: per record
+    # seg_off, n_seg, q_start, q_end; per boundary q_bound, pre_diffs,
+    # pre_aligned (index/tracepoints.py).
+    TP_KEYS = (
+        "seg_off", "n_seg", "q_bound", "pre_diffs", "pre_aligned", "q_start",
+        "q_end",
+    )
 
     @classmethod
-    def from_arrays(cls, arrays: dict, device) -> "TorchDeviceIndex":
-        """Upload numpy arrays: RECORD_KEYS, `tgt_offsets`, PROJECTION_CORE,
-        optionally STATS_KEYS and `cummax_te` (derived when absent)."""
+    def from_arrays(cls, arrays: dict, device, tp: dict | None = None,
+                    tp_spacing: int = 0) -> "TorchDeviceIndex":
+        """Upload numpy arrays: RECORD_KEYS, `tgt_offsets`, the arena arrays
+        present (PROJECTION_CORE, STATS_KEYS; the rest can follow through
+        `upload_arena`), `cummax_te` (derived when absent), and the TP_KEYS
+        columns `tp` on a grid of `tp_spacing` (int64 prefixes cast to int32
+        as the JAX upload does: they are sums within one record)."""
         dev = check_device(device)
-        if arrays["runs"].size >= 2**31:
-            raise ValueError("arena too large for int32 offsets")
+        if "runs" in arrays:
+            _check_arena_size(arrays)
+        if tp is not None and np.asarray(tp["q_bound"]).size >= 2**31:
+            raise ValueError("tracepoint table too large for int32 offsets")
         t_end = np.asarray(arrays["t_end"])
         tgt_offsets = np.asarray(arrays["tgt_offsets"])
         cummax = arrays.get("cummax_te")
@@ -161,21 +180,41 @@ class TorchDeviceIndex:
             search_iters=_iters_for(int(op_cnt.max()) if op_cnt.size else 1),
             window_iters=_iters_for(int(tree.max()) if tree.size else 1),
             device=dev,
+            tp=None if tp is None else {
+                k: up(np.asarray(tp[k]).astype(np.int32, copy=False))
+                for k in cls.TP_KEYS
+            },
+            tp_spacing=int(tp_spacing) if tp is not None else 0,
         )
 
     @classmethod
-    def build(cls, index, device) -> "TorchDeviceIndex":
+    def build(cls, index, device,
+              with_tracepoints: bool = False) -> "TorchDeviceIndex":
         """Upload an ImpgIndex, leaving the six identity-stats arena arrays
-        (6/11 of the arena bytes) for `upload_stats`."""
+        (6/11 of the arena bytes) for `upload_stats`.  `with_tracepoints`
+        adds the tracepoint columns of `index.tp` whatever its spacing, built
+        at the default spacing when the index has none (the rule of the JAX
+        DeviceIndex, which keeps this engine, the JAX one and the native one
+        on one spacing), and leaves the whole CIGAR arena for
+        `upload_arena`: approximate walks never read it."""
         r = index.records
-        return cls.from_arrays(
-            dict(
-                **{k: getattr(r, k) for k in cls.RECORD_KEYS},
-                tgt_offsets=index.tgt_offsets,
-                **index.arena.projection_kwargs(with_stats=False),
-            ),
-            device,
-        )
+        arrays = dict(**{k: getattr(r, k) for k in cls.RECORD_KEYS},
+                      tgt_offsets=index.tgt_offsets)
+        tp = tp_spacing = None
+        if with_tracepoints:
+            arena = index.tp if index.tp is not None else index.ensure_tracepoints()
+            tp = {k: getattr(arena, k) for k in cls.TP_KEYS[:5]}
+            tp.update(q_start=r.q_start, q_end=r.q_end)
+            tp_spacing = arena.spacing
+        else:
+            arrays.update(index.arena.projection_kwargs(with_stats=False))
+        return cls.from_arrays(arrays, device, tp, tp_spacing)
+
+    def upload_arena(self, arena_arrays: dict) -> None:
+        """Upload the PROJECTION_CORE arena arrays (exact projection)."""
+        _check_arena_size(arena_arrays)
+        for k in self.PROJECTION_CORE:
+            self.arena[k] = upload_i32(np.asarray(arena_arrays[k]), self.device)
 
     def upload_stats(self, arena_arrays: dict) -> None:
         for k in self.STATS_KEYS:
@@ -184,7 +223,13 @@ class TorchDeviceIndex:
     def nbytes(self) -> int:
         ts = [getattr(self, k) for k in self.RECORD_KEYS]
         ts += [self.cummax_te, self.tgt_offsets, *self.arena.values()]
+        ts += list((self.tp or {}).values())
         return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _check_arena_size(arena_arrays: dict) -> None:
+    if np.asarray(arena_arrays["runs"]).size >= 2**31:
+        raise ValueError("arena too large for int32 offsets")
 
 
 def _check_i32(name, t, n=None, dtype=torch.int32):
@@ -260,11 +305,43 @@ def stab_windows(tgt_offsets, t_start, cummax_te, q_tid, q_s, q_e,
 
 
 def _with_stats(dindex: TorchDeviceIndex, mask: int) -> bool:
+    if "runs" not in dindex.arena:
+        raise ValueError("exact projection requested before upload_arena")
     if not mask & _STATS_MASK:
         return False
     if "cum_match" not in dindex.arena:
         raise ValueError("identity-stats fields requested before upload_stats")
     return True
+
+
+def _lane_records(lane_off, win_lo, lane_base: int, n_lanes: int):
+    """(query, record) int64 [L] of each exact lane: the lane enumeration of
+    csrc/lanes.cuh, query-major then ascending record."""
+    dev = win_lo.device
+    q = torch.repeat_interleave(
+        torch.arange(win_lo.shape[0], device=dev), lane_off[1:] - lane_off[:-1],
+        output_size=n_lanes,
+    )
+    lanes = torch.arange(n_lanes, device=dev, dtype=torch.int64) + lane_base
+    return q, win_lo[q].long() + (lanes - lane_off[q])
+
+
+def _stack_rows(values: dict, mask: int, n_lanes: int, dev) -> torch.Tensor:
+    """The requested fields' int32 rows [n_rows, L] in RESULT_FIELDS order."""
+    names = mask_fields(mask)
+    if not names:
+        return torch.empty((0, n_lanes), dtype=torch.int32, device=dev)
+    return torch.stack([values[f].to(torch.int32) for f in names])
+
+
+def _check_lanes(lane_off, win_lo, q_s, q_e, n_lanes: int, name: str):
+    nq = win_lo.shape[0]
+    _check_i32("lane_off", lane_off, nq + 1, torch.int64)
+    _check_i32("win_lo", win_lo, nq)
+    _check_i32("q_s", q_s, nq)
+    _check_i32("q_e", q_e, nq)
+    if not 0 <= n_lanes <= _MAX_LANES:
+        raise ValueError(f"{name}: {n_lanes} lanes exceed int32")
 
 
 def project_lanes_plain(dindex: TorchDeviceIndex, lane_off, win_lo, q_s, q_e,
@@ -273,13 +350,7 @@ def project_lanes_plain(dindex: TorchDeviceIndex, lane_off, win_lo, q_s, q_e,
     """Plain twin of K-C: (valid uint8 [L], rows int32 [n_rows, L]).  Unlike
     the kernel it fills every lane's rows; only valid lanes are meaningful."""
     dev = win_lo.device
-    nq = win_lo.shape[0]
-    q = torch.repeat_interleave(
-        torch.arange(nq, device=dev), lane_off[1:] - lane_off[:-1],
-        output_size=n_lanes,
-    )
-    lanes = torch.arange(n_lanes, device=dev, dtype=torch.int64) + lane_base
-    rec = win_lo[q].long() + (lanes - lane_off[q])
+    q, rec = _lane_records(lane_off, win_lo, lane_base, n_lanes)
     r_ts = dindex.t_start[rec]
     r_te = dindex.t_end[rec]
     rng_s = q_s[q]
@@ -310,13 +381,7 @@ def project_lanes_plain(dindex: TorchDeviceIndex, lane_off, win_lo, q_s, q_e,
         pair_q=(q + q_base).to(torch.int32),
         query_id=dindex.query_id[rec],
     )
-    names = mask_fields(mask)
-    rows = (
-        torch.stack([values[f] for f in names])
-        if names
-        else torch.empty((0, n_lanes), dtype=torch.int32, device=dev)
-    )
-    return valid.to(torch.uint8), rows
+    return valid.to(torch.uint8), _stack_rows(values, mask, n_lanes, dev)
 
 
 def project_lanes(dindex: TorchDeviceIndex, lane_off, win_lo, q_s, q_e, *,
@@ -328,12 +393,7 @@ def project_lanes(dindex: TorchDeviceIndex, lane_off, win_lo, q_s, q_e, *,
     n_lanes, which the kernel trusts).  Returns (valid uint8 [L], rows int32 [n_rows, L]) with rows
     in RESULT_FIELDS order of `mask`.  K-C on CUDA, the plain twin on CPU."""
     nq = win_lo.shape[0]
-    _check_i32("lane_off", lane_off, nq + 1, torch.int64)
-    _check_i32("win_lo", win_lo, nq)
-    _check_i32("q_s", q_s, nq)
-    _check_i32("q_e", q_e, nq)
-    if not 0 <= n_lanes <= _MAX_LANES:
-        raise ValueError(f"project_lanes: {n_lanes} lanes exceed int32")
+    _check_lanes(lane_off, win_lo, q_s, q_e, n_lanes, "project_lanes")
     dev = _device_of(lane_off, win_lo, q_s, q_e, dindex.t_start)
     if dev.type == "cpu":
         return project_lanes_plain(
@@ -357,6 +417,84 @@ def project_lanes(dindex: TorchDeviceIndex, lane_off, win_lo, q_s, q_e, *,
         *(a[k].data_ptr() if with_stats else None for k in dindex.STATS_KEYS),
         a["runs"].shape[0], int(clip_overlap), int(with_stats), mask,
         valid.data_ptr(), rows.data_ptr(), kernels.stream_of(valid),
+    )
+    return valid, rows
+
+
+# ── K-E: lanes + hit gate + approximate (tracepoint) projection ─────────
+
+# Fields approximate mode does not compute: K-E and its twin write zeros
+# (impg_tpu/query/device.py:_lanes_core's tracepoint branch).
+_APPROX_ZERO_FIELDS = (
+    "first_run", "last_run", "first_clip", "last_rem", "i_count", "d_count",
+    "i_bp", "d_bp",
+)
+
+
+def _require_tp(dindex: TorchDeviceIndex) -> None:
+    if dindex.tp is None:
+        raise ValueError("approximate projection needs an index uploaded "
+                         "with_tracepoints")
+
+
+def project_approx_lanes_plain(dindex: TorchDeviceIndex, lane_off, win_lo,
+                               q_s, q_e, *, q_base: int, lane_base: int,
+                               n_lanes: int, clip_overlap: bool, mask: int):
+    """Plain twin of K-E: (valid uint8 [L], rows int32 [n_rows, L]), every
+    lane's rows filled; only valid lanes are meaningful."""
+    _require_tp(dindex)
+    dev = win_lo.device
+    q, rec = _lane_records(lane_off, win_lo, lane_base, n_lanes)
+    r_ts = dindex.t_start[rec]
+    r_te = dindex.t_end[rec]
+    rng_s = q_s[q]
+    rng_e = q_e[q]
+    hit = r_te >= rng_s
+    if clip_overlap:
+        rng_s = torch.maximum(rng_s, r_ts)
+        rng_e = torch.minimum(rng_e, r_te)
+    res = approx.project_approx(dindex.tp, dindex.tp_spacing, rec, r_ts, r_te,
+                                rng_s, rng_e)
+    zero = torch.zeros_like(r_ts)
+    values = dict(
+        res,
+        **dict.fromkeys(_APPROX_ZERO_FIELDS, zero),
+        pair_rec=rec,
+        pair_q=q + q_base,
+        query_id=dindex.query_id[rec],
+    )
+    valid = res["valid"] & hit
+    return valid.to(torch.uint8), _stack_rows(values, mask, n_lanes, dev)
+
+
+def project_approx_lanes(dindex: TorchDeviceIndex, lane_off, win_lo, q_s,
+                         q_e, *, q_base: int, lane_base: int, n_lanes: int,
+                         clip_overlap: bool, mask: int):
+    """`project_lanes` with the approximate (tracepoint) projection: K-E on
+    CUDA, the plain twin on CPU."""
+    _require_tp(dindex)
+    nq = win_lo.shape[0]
+    _check_lanes(lane_off, win_lo, q_s, q_e, n_lanes, "project_approx_lanes")
+    dev = _device_of(lane_off, win_lo, q_s, q_e, dindex.t_start)
+    if dev.type == "cpu":
+        return project_approx_lanes_plain(
+            dindex, lane_off, win_lo, q_s, q_e, q_base=q_base,
+            lane_base=lane_base, n_lanes=n_lanes, clip_overlap=clip_overlap,
+            mask=mask,
+        )
+    valid = torch.empty(n_lanes, dtype=torch.uint8, device=dev)
+    rows = torch.empty((len(mask_fields(mask)), n_lanes), dtype=torch.int32,
+                       device=dev)
+    tp = dindex.tp
+    kernels.launch(
+        "project_approx", "impg_project_approx",
+        lane_off.data_ptr(), nq, lane_base, n_lanes, win_lo.data_ptr(),
+        q_s.data_ptr(), q_e.data_ptr(), q_base,
+        dindex.t_start.data_ptr(), dindex.t_end.data_ptr(),
+        dindex.query_id.data_ptr(),
+        *(tp[k].data_ptr() for k in dindex.TP_KEYS), dindex.tp_spacing,
+        int(clip_overlap), mask, valid.data_ptr(), rows.data_ptr(),
+        kernels.stream_of(valid),
     )
     return valid, rows
 
@@ -403,19 +541,65 @@ def compact(valid, rows):
 # ── engine ──────────────────────────────────────────────────────────────
 
 
+def lane_offsets(k: torch.Tensor):
+    """The int64 exclusive cumsum of window sizes `k` ([B] -> [B + 1]), on
+    k's device and as a host copy."""
+    offs = torch.zeros(k.shape[0] + 1, dtype=torch.int64, device=k.device)
+    offs[1:] = torch.cumsum(k, 0)
+    return offs, offs.cpu().numpy()
+
+
+def lane_chunks(offs: np.ndarray, lane_budget: int):
+    """Query ranges [q0, q1) of at most `lane_budget` lanes each (a lone
+    query with more lanes is a chunk of its own); empty ones skipped."""
+    n = offs.size - 1
+    q0 = 0
+    while q0 < n:
+        cut = np.searchsorted(offs, offs[q0] + lane_budget, "right")
+        q1 = min(max(int(cut) - 1, q0 + 1), n)
+        if offs[q1] > offs[q0]:
+            yield q0, q1
+        q0 = q1
+
+
+def hits_to_numpy(hits: torch.Tensor, mask: int, fields) -> dict:
+    """Compacted rows [n_rows, n_hits] (rows in RESULT_FIELDS order of
+    `mask`) -> {field: int32 numpy} for `fields`, with `valid` all True
+    and the scalar `n_hits`."""
+    h = hits.cpu().numpy()
+    names = mask_fields(mask)
+    out = {f: h[names.index(f)] for f in fields if f != "valid"}
+    out["valid"] = np.ones(h.shape[1], bool)
+    out["n_hits"] = np.int32(h.shape[1])
+    return out
+
+
 class TorchDeviceEngine:
     """Host-facing engine with DeviceEngine's contract: numpy in, numpy out.
 
-    `supports_approximate` is False: query/engine.py then routes approximate
-    (tracepoint) walks to the host engine."""
+    Built `with_tracepoints`, it also serves approximate (tracepoint) walks
+    (`supports_approximate`) and uploads the CIGAR arena only on its first
+    exact stream; without, query/engine.py routes approximate walks to the
+    host engine."""
 
-    supports_approximate = False
-
-    def __init__(self, index, device):
+    def __init__(self, index, device, with_tracepoints: bool = False):
         self.device = check_device(device)
         self.index = index
-        self.dindex = TorchDeviceIndex.build(index, self.device)
+        self.dindex = TorchDeviceIndex.build(index, self.device,
+                                             with_tracepoints)
         self.lane_budget = LANE_BUDGET
+
+    @property
+    def supports_approximate(self) -> bool:
+        return self.dindex.tp is not None
+
+    def _ensure_arena(self) -> None:
+        """Upload the lean arena on first need (a tracepoint engine's
+        approximate walks never touch it)."""
+        if "runs" not in self.dindex.arena:
+            self.dindex.upload_arena(
+                self.index.arena.projection_kwargs(with_stats=False)
+            )
 
     def _ensure_stats(self) -> None:
         """Upload the identity-stats arena arrays on first need (the lean BFS
@@ -427,53 +611,40 @@ class TorchDeviceEngine:
         return tuple(upload_i32(np.asarray(a), self.device)
                      for a in (q_tid, q_s, q_e))
 
-    def _chunks(self, offs: np.ndarray):
-        """Query ranges [q0, q1) of at most `lane_budget` lanes each (a lone
-        query with more lanes is a chunk of its own); empty ones skipped."""
-        n = offs.size - 1
-        q0 = 0
-        while q0 < n:
-            cut = np.searchsorted(offs, offs[q0] + self.lane_budget, "right")
-            q1 = min(max(int(cut) - 1, q0 + 1), n)
-            if offs[q1] > offs[q0]:
-                yield q0, q1
-            q0 = q1
-
     def query_batch_stream(self, q_tid, q_s, q_e, clip_overlap: bool = False,
                            approximate: bool = False, fields=None):
         """Yield one dict per lane chunk: each requested field as int32 numpy
         (hits only, query-major then ascending record), `valid` all True,
         and the scalars `k_needed` (largest window in the chunk) and
-        `n_hits`.  `pair_q` indexes the query within the batch."""
-        if approximate:
+        `n_hits`.  `pair_q` indexes the query within the batch.
+        `approximate` projects through the tracepoints (K-E) and never
+        uploads the CIGAR arena."""
+        if approximate and not self.supports_approximate:
             raise ValueError(
-                "approximate projection is not ported; route approximate "
-                "walks to the host engine (supports_approximate is False)"
+                "approximate walks need TorchDeviceEngine(..., "
+                "with_tracepoints=True); supports_approximate is False"
             )
         fields = RESULT_FIELDS if fields is None else tuple(fields)
         mask = field_mask(fields)
-        if mask & _STATS_MASK:
-            self._ensure_stats()
-        names = mask_fields(mask)
+        if not approximate:
+            self._ensure_arena()
+            if mask & _STATS_MASK:
+                self._ensure_stats()
+        project = project_approx_lanes if approximate else project_lanes
         d = self.dindex
         qt, qs, qe = self._upload_queries(q_tid, q_s, q_e)
         win_lo, k = stab_windows(d.tgt_offsets, d.t_start, d.cummax_te, qt, qs,
                                  qe, d.window_iters)
-        offs = torch.zeros(k.shape[0] + 1, dtype=torch.int64, device=k.device)
-        offs[1:] = torch.cumsum(k, 0)
-        offs_h = offs.cpu().numpy()
-        for q0, q1 in self._chunks(offs_h):
-            valid, rows = project_lanes(
+        offs, offs_h = lane_offsets(k)
+        for q0, q1 in lane_chunks(offs_h, self.lane_budget):
+            valid, rows = project(
                 d, offs[q0:q1 + 1], win_lo[q0:q1], qs[q0:q1], qe[q0:q1],
                 q_base=q0, lane_base=int(offs_h[q0]),
                 n_lanes=int(offs_h[q1] - offs_h[q0]),
                 clip_overlap=clip_overlap, mask=mask,
             )
-            hits = compact(valid, rows).cpu().numpy()
-            out = {f: hits[names.index(f)] for f in fields if f != "valid"}
-            out["valid"] = np.ones(hits.shape[1], bool)
+            out = hits_to_numpy(compact(valid, rows), mask, fields)
             out["k_needed"] = np.int32(np.diff(offs_h[q0:q1 + 1]).max())
-            out["n_hits"] = np.int32(hits.shape[1])
             yield out
 
     def query_batch(self, q_tid, q_s, q_e, clip_overlap: bool = False,

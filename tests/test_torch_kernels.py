@@ -47,7 +47,7 @@ def test_launch_counts_a_launch(fake_library):
     assert kernels.launch(None, "impg_compact_scatter")
     assert lib.calls == 3
     assert kernels.launch_counts() == dict(
-        stab_count=0, windows=2, project_lanes=0, compact=0
+        stab_count=0, windows=2, project_lanes=0, compact=0, project_approx=0
     )
 
 
@@ -55,9 +55,10 @@ def test_empty_call_leaves_count_unchanged(fake_library):
     lib = fake_library(kernels.NO_LAUNCH)
     for name, entry in (("stab_count", "impg_stab_count"),
                         ("project_lanes", "impg_project_lanes"),
-                        ("compact", "impg_compact_count")):
+                        ("compact", "impg_compact_count"),
+                        ("project_approx", "impg_project_approx")):
         assert kernels.launch(name, entry) is False
-    assert lib.calls == 3
+    assert lib.calls == 4
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
 
 
@@ -66,6 +67,30 @@ def test_cuda_error_raises_uncounted(fake_library):
     with pytest.raises(RuntimeError, match="CUDA error 700: stand-in error"):
         kernels.launch("stab_count", "impg_stab_count")
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+
+
+def test_project_approx_counts_on_its_own(fake_library):
+    """K-E has its own counter: a launch of it moves no other count."""
+    lib = fake_library(0)
+    assert kernels.launch("project_approx", "impg_project_approx", 1)
+    assert kernels.launch("project_approx", "impg_project_approx", 1)
+    assert lib.calls == 2
+    counts = kernels.launch_counts()
+    assert counts.pop("project_approx") == 2
+    assert counts == dict.fromkeys(counts, 0)
+
+
+def test_sources_and_signatures_cover_every_kernel():
+    """Every counter has a source, every entry point a ctypes signature, and
+    every header the sources include is hashed into the build key."""
+    assert "project_approx.cu" in kernels.SOURCES
+    assert "project_approx" in kernels.KERNELS
+    assert "impg_project_approx" in kernels._SIGNATURES
+    included = set()
+    for source in kernels.SOURCES:
+        with open(os.path.join(kernels.CSRC_DIR, source)) as fh:
+            included |= set(re.findall(r'#include "([^"]+)"', fh.read()))
+    assert included == set(kernels.HEADERS)
 
 
 @pytest.mark.parametrize("source", kernels.SOURCES)

@@ -98,7 +98,7 @@ def test_cli_output_matches_jax_device(cli_inputs, capsys, kind):
     assert len(got.splitlines()) >= 2
 
 
-def test_cli_resolver_routes(cli_inputs, capsys):
+def test_cli_resolver_routes(cli_inputs, capsys, monkeypatch):
     paf, _ = cli_inputs
     base = ["query", "-a", paf, "-r", "ref:2000-8000", "-d", "100", "-x",
             "-o", "bed"]
@@ -107,6 +107,12 @@ def test_cli_resolver_routes(cli_inputs, capsys):
         got = _run(torch_cli.main, base + ["--compute-engine", spec], capsys,
                    device="cpu")
         assert got == host, spec
+    # An index past the device budget is paged, not refused.
+    monkeypatch.setenv("IMPG_HBM_BUDGET_BYTES", "4096")
+    got = _run(torch_cli.main, base + ["--compute-engine", "device"], capsys,
+               device="cpu")
+    assert got == host
+    monkeypatch.delenv("IMPG_HBM_BUDGET_BYTES")
     original = jax_cli._resolve_compute_engine
     with pytest.raises(SystemExit) as exc:
         torch_cli.main(base + ["--compute-engine", "mesh"], device="cpu")
