@@ -9,9 +9,12 @@ just after, and fails unless every kernel of that path launched:
   1. device  card name, count and power limit (`nvidia-smi`)
   2. build   nvcc build of impg_tpu_torch/csrc (time, registers, spills)
   3. kernels each CUDA kernel against its plain-torch twin on the card,
-             exact equality, times from CUDA events in alternation: K-A at
-             the index's records x 4096 queries, K-B/K-C/K-D on one chunk of
-             the depth-2 frontier of the slice below
+             exact equality, times from CUDA events in turns, beside its
+             bound (bytes over 3.35 TB/s or 32-bit operations over 67 T/s,
+             from this run's data) and, for K-D, the one PyTorch call that
+             computes its function (`rows[:, valid.bool()]`): K-A at the
+             index's records x 4096 queries, K-B/K-C/K-D on one chunk of the
+             depth-2 frontier of the slice below
   4. slice   256 seeds of 10-50 kb, transitive BFS to depth 2 through
              TorchDeviceEngine on a yeast-fitted synthetic index of 250,000
              alignments, then the seeds' region depth (`stats` path) through
@@ -38,9 +41,12 @@ just after, and fails unless every kernel of that path launched:
              to host (`python -m impg_tpu_torch.cli` in a subprocess), each
              through the expected engine and kernels
 The last two lines are the kernel table and the result as JSON.  Imports
-only impg_tpu_torch (whose host half is impg_tpu's JAX-free numpy/C++ code,
-see impg_tpu_torch/host.py) and, for phase 5's demo data, examples/: the
-machine with the card has no JAX.
+only impg_tpu_torch and, for phase 5's demo data, examples/ (which reaches
+tests/datagen.py and tests/pyref.py): an import guard installed before the
+port is imported refuses `jax` and `impg_tpu` (and their submodules) and the
+run fails if anything tried to import them.  The port's native host library
+(its own g++ build) must load, so that the run measures the native visited
+bookkeeping.
 """
 
 from __future__ import annotations
@@ -74,6 +80,32 @@ N_SEEDS = 256
 # The paged phase's budget: this share of the index's lean bytes.
 PAGED_SHARE = 3
 DEVICE = torch.device("cuda", 0)
+# The card's peaks for the bound (on-chip-measurement guide, H100 SXM at
+# 700 W): HBM bytes per second, and 32-bit scalar operations per second (the
+# float32 rate outside the tensor cores, taken for the integer ops here).
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+# Integer ops per (record, query) pair of K-A: three compares and an add.
+STAB_OPS_PER_PAIR = 4
+
+
+class ImportGuard:
+    """Meta-path finder that refuses `jax`, `impg_tpu` and their submodules
+    (names matched exactly: impg_tpu_torch passes) and records each try."""
+
+    BLOCKED = ("jax", "impg_tpu")
+
+    def __init__(self):
+        self.tried = []
+
+    def blocked(self, name: str) -> bool:
+        return any(name == b or name.startswith(b + ".") for b in self.BLOCKED)
+
+    def find_spec(self, name, path=None, target=None):
+        if self.blocked(name):
+            self.tried.append(name)
+            raise ImportError(f"chip_smoke: import of {name} refused")
+        return None
 
 
 def _bind_repo() -> None:
@@ -133,18 +165,53 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_pair(kernel_fn, plain_fn, reps: int = 5, rounds: int = 3):
-    """Warm, then (plain, kernel, kernel, plain)-style alternation; median
-    ms per call of each."""
-    kernel_fn()
-    plain_fn()
+def time_turns(fns: dict, reps: int = 5, rounds: int = 4) -> dict:
+    """Warm each function, then `rounds` rounds in turns, the order reversed
+    every other round (plain, kernel, kernel, plain, ...); median ms per
+    call of each."""
+    for fn in fns.values():
+        fn()
     torch.cuda.synchronize()
-    k_ms, p_ms = [], []
+    acc = {k: [] for k in fns}
+    order = list(fns)
     for r in range(rounds):
-        order = ((plain_fn, p_ms), (kernel_fn, k_ms))
-        for fn, acc in (order if r % 2 == 0 else order[::-1]):
-            acc.append(cuda_ms(fn, reps))
-    return float(np.median(k_ms)), float(np.median(p_ms))
+        for k in (order if r % 2 == 0 else order[::-1]):
+            acc[k].append(cuda_ms(fns[k], reps))
+    return {k: float(np.median(v)) for k, v in acc.items()}
+
+
+def time_pair(kernel_fn, plain_fn, reps: int = 5, rounds: int = 3):
+    """(kernel ms, plain ms) from `time_turns`."""
+    t = time_turns(dict(plain=plain_fn, kernel=kernel_fn), reps, rounds)
+    return t["kernel"], t["plain"]
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time per call of `fn` (which must not synchronise): the stream
+    is first held busy (torch.cuda._sleep) while the host enqueues the
+    start event, `reps` calls and the end event, so the events time the
+    calls' device work back to back, without the host work between them
+    that CUDA events around whole calls also count."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(5_000_000)  # ~3 ms of clock cycles
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes: float, n_ops: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over the 32-bit rate."""
+    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    o_ms = n_ops / OPS_PER_S * 1e3
+    return dict(bound_ms=max(b_ms, o_ms),
+                bound_by="bytes" if b_ms >= o_ms else "operations")
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -157,18 +224,43 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def print_kernel_rows(rows: dict) -> None:
     for name, r in rows.items():
+        lib = r.get("library_ms")
+        extra = f" device_ms={r['device_ms']:.4f}" if "device_ms" in r else ""
         print(f"[3 kernels] {name} {r['shape']}: tolerance=0 (integers) "
               f"max_abs_err={r['max_abs_err']}"
-              f" kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f}",
+              f" kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f}"
+              f" library_ms={'none' if lib is None else f'{lib:.4f}'}"
+              f"{extra} bound_ms={r['bound_ms']:.4f} bound_by={r['bound_by']}",
               flush=True)
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{name}: kernel disagrees with plain twin")
 
 
-def check_lanes(project, project_plain, largs, lkw) -> tuple:
+def lane_census(D, largs, lkw, approximate: bool) -> int:
+    """Lanes of a chunk that a lane kernel projects: those passing the hit
+    gate with a non-empty range and, for K-C, an overlap with a record that
+    has runs (its work list)."""
+    d, lane_off, win_lo, q_s, q_e = largs
+    q, rec = D._lane_records(lane_off, win_lo, lkw["lane_base"],
+                             lkw["n_lanes"])
+    ts, te, qs, qe = d.t_start[rec], d.t_end[rec], q_s[q], q_e[q]
+    rs, re = ((torch.maximum(qs, ts), torch.minimum(qe, te))
+              if lkw["clip_overlap"] else (qs, qe))
+    listed = (te >= qs) & (rs < re)
+    if not approximate:
+        listed &= (rs < te) & (re > ts) & (d.op_cnt[rec] > 0)
+    return int(listed.sum())
+
+
+def check_lanes(D, project, project_plain, largs, lkw, *,
+                approximate: bool) -> tuple:
     """A lane kernel (K-C or K-E) against its twin on the same lanes: the
     valid bytes everywhere, the rows on the valid lanes.  Returns the
-    kernel's (valid, rows) and its table row."""
+    kernel's (valid, rows) and its table row.  Bytes of the bound, each read
+    or written once: per lane its record's t_start, t_end and the valid
+    byte; per query its lane offset, window start and range; per projected
+    lane its record's other columns and the arena or tracepoint values at
+    the answer; per valid lane its rows."""
     valid, lrows = project(*largs, **lkw)
     p_valid, p_rows = project_plain(*largs, **lkw)
     sel = torch.nonzero(p_valid, as_tuple=True)[0]
@@ -176,21 +268,47 @@ def check_lanes(project, project_plain, largs, lkw) -> tuple:
               max_abs_err(lrows[:, sel], p_rows[:, sel]))
     ms, pms = time_pair(lambda: project(*largs, **lkw),
                         lambda: project_plain(*largs, **lkw))
+    dev_ms = device_ms(lambda: project(*largs, **lkw))
+    if approximate:
+        per_listed = 4 * 4 + 8 * 4 + 4  # tracepoint columns, boundaries, qid
+    else:
+        # op_cnt, op_off, strand, query_id; cum_t x4, irun x2, runs x2,
+        # cum_q x2 at the boundary runs; the six stats prefixes x2.
+        per_listed = 16 + 40 + (48 if lkw["mask"] & D._STATS_MASK else 0)
+    n_bytes = (lkw["n_lanes"] * 9 + largs[2].shape[0] * 20
+               + lane_census(D, largs, lkw, approximate) * per_listed
+               + int(sel.numel()) * lrows.shape[0] * 4)
     return valid, lrows, dict(
-        max_abs_err=err, ms=ms, plain_ms=pms,
+        max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
+        device_ms=dev_ms,
+        **bound(n_bytes),
         shape=f"{lkw['n_lanes']} lanes x {lrows.shape[0]} fields",
         valid=int(sel.numel()),
     )
 
 
 def check_compact(D, valid, lrows) -> dict:
+    """K-D against its twin, timed in turns beside the one PyTorch call that
+    computes its function (`rows[:, valid.bool()]`, which the port never
+    calls); `device_ms` is its launch's device time alone (scratch memset
+    and kernel, without the read of n_hits that the wrapper makes)."""
     hits = D.compact(valid, lrows)
-    err = max_abs_err(hits, D.compact_plain(valid, lrows))
-    ms, pms = time_pair(lambda: D.compact(valid, lrows),
-                        lambda: D.compact_plain(valid, lrows))
+    plain = D.compact_plain(valid, lrows)
+    err = max_abs_err(hits, plain)
+    if max_abs_err(lrows[:, valid.bool()], plain):
+        raise AssertionError("compact: the library call disagrees")
+    t = time_turns(dict(
+        plain=lambda: D.compact_plain(valid, lrows),
+        kernel=lambda: D.compact(valid, lrows),
+        library=lambda: lrows[:, valid.bool()],
+    ), rounds=4)
+    n_rows, n_hits = hits.shape
     return dict(
-        max_abs_err=err, ms=ms, plain_ms=pms,
-        shape=f"{valid.shape[0]} lanes -> {hits.shape[1]} x {hits.shape[0]}",
+        max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+        library_ms=t["library"],
+        device_ms=device_ms(lambda: D.compact_launch(valid, lrows)),
+        **bound(valid.shape[0] + 2 * n_hits * n_rows * 4),
+        shape=f"{valid.shape[0]} lanes -> {n_hits} x {n_rows}",
     )
 
 
@@ -288,9 +406,12 @@ def phase_kernels(eng, index, targets, D, SC, host):
     err = max_abs_err(got, ref)
     ms, pms = time_pair(lambda: SC.stab_counts(*recs, *qa),
                         lambda: SC.stab_counts_plain(*recs, *qa), reps=3)
-    rows["stab_count"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                              shape=f"{d.n_records}x{b}",
-                              hits=int(got.long().sum()))
+    rows["stab_count"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
+        **bound(d.n_records * 12 + b * 16,
+                d.n_records * b * STAB_OPS_PER_PAIR),
+        shape=f"{d.n_records}x{b}", hits=int(got.long().sum()),
+    )
 
     # K-B over the whole depth-2 frontier.
     fq, largs, lkw = first_chunk(D, d, front, eng.lane_budget)
@@ -300,8 +421,19 @@ def phase_kernels(eng, index, targets, D, SC, host):
     err = max(max_abs_err(win_lo, p_lo), max_abs_err(k, p_k))
     ms, pms = time_pair(lambda: D.stab_windows(*wargs),
                         lambda: D.stab_windows_plain(*wargs))
-    rows["windows"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                           shape=f"{front[0].size} queries")
+    # Bytes: per query its three inputs, two outputs, two target offsets and
+    # the values its two searches probe.
+    n_seqs = d.tgt_offsets.shape[0] - 1
+    tid = fq[0].long()
+    ok = (tid >= 0) & (tid < n_seqs)
+    tid = tid.clamp(0, n_seqs - 1)
+    seg_n = (d.tgt_offsets[tid + 1] - d.tgt_offsets[tid]).double()
+    probes = int((torch.ceil(torch.log2(seg_n + 1)) * 2 * ok).sum())
+    rows["windows"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
+        **bound(front[0].size * 28 + probes * 4),
+        shape=f"{front[0].size} queries",
+    )
 
     # K-C and K-D on the frontier's first lane chunk, lean then full fields.
     for label, fields in (("lean", host.LEAN_FIELDS), ("full", None)):
@@ -309,7 +441,8 @@ def phase_kernels(eng, index, targets, D, SC, host):
         if mask & D._STATS_MASK:
             eng._ensure_stats()
         valid, lrows, rows[f"project_lanes/{label}"] = check_lanes(
-            D.project_lanes, D.project_lanes_plain, largs, dict(lkw, mask=mask)
+            D, D.project_lanes, D.project_lanes_plain, largs,
+            dict(lkw, mask=mask), approximate=False,
         )
         rows[f"compact/{label}"] = check_compact(D, valid, lrows)
     print_kernel_rows(rows)
@@ -408,8 +541,10 @@ def phase_profile(eng, index, targets, host) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     st = pstats.Stats(prof).stats
-    bfs_tt, _ = _frame_times(st, "_bfs_many_native",
-                             os.path.join("impg_tpu", "query", "engine.py"))
+    bfs_tt, _ = _frame_times(
+        st, "_bfs_many_native",
+        os.path.join("impg_tpu_torch", "query", "engine.py"),
+    )
     _, stream_ct = _frame_times(
         st, "query_batch_stream",
         os.path.join("impg_tpu_torch", "query", "device.py"),
@@ -468,8 +603,8 @@ def phase_approx(index, targets, kernels, D, host) -> tuple:
     rows = {}
     for label, fields in (("lean", host.LEAN_FIELDS), ("full", D.RESULT_FIELDS)):
         _, _, rows[f"project_approx/{label}"] = check_lanes(
-            D.project_approx_lanes, D.project_approx_lanes_plain, largs,
-            dict(lkw, mask=D.field_mask(fields)),
+            D, D.project_approx_lanes, D.project_approx_lanes_plain, largs,
+            dict(lkw, mask=D.field_mask(fields)), approximate=True,
         )
     print_kernel_rows(rows)
 
@@ -537,7 +672,8 @@ def phase_paged(index, targets, front, native, kernels, D, host):
                mask=D.field_mask(host.LEAN_FIELDS + ("pair_q",)))
     rows = {}
     valid, lrows, rows["project_lanes/page"] = check_lanes(
-        D.project_lanes, D.project_lanes_plain, largs, lkw
+        D, D.project_lanes, D.project_lanes_plain, largs, lkw,
+        approximate=False,
     )
     rows["compact/page"] = check_compact(D, valid, lrows)
     print_kernel_rows(rows)
@@ -686,9 +822,12 @@ def main() -> int:
         raise SystemExit("chip_smoke: takes no arguments")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
+    guard = ImportGuard()
+    sys.meta_path.insert(0, guard)
     _bind_repo()
     from impg_tpu_torch import host
     from impg_tpu_torch import kernels
+    from impg_tpu_torch.io import native
     from impg_tpu_torch.ops import stab_count as SC
     from impg_tpu_torch.query import device as D
     from impg_tpu_torch.synth import realistic_directed_index
@@ -696,6 +835,12 @@ def main() -> int:
     t_start = time.perf_counter()
     dev_info = phase_device()
     phase_build(kernels)
+    t0 = time.perf_counter()
+    if native.load() is None:
+        raise AssertionError("the port's native host library did not load")
+    print(f"[setup] native host library "
+          f"{os.path.relpath(native._SO_PATH, REPO)} loaded in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
 
     t0 = time.perf_counter()
     index = realistic_directed_index(
@@ -716,8 +861,8 @@ def main() -> int:
     targets = scale_queries(len(index.seq_index), N_SEEDS)
 
     rows, front = phase_kernels(eng, index, targets, D, SC, host)
-    launches, native = phase_slice(eng, index, targets, kernels, D, host,
-                                   lean_bytes)
+    launches, native_rows = phase_slice(eng, index, targets, kernels, D, host,
+                                        lean_bytes)
     phase_profile(eng, index, targets, host)
     del eng
     torch.cuda.empty_cache()
@@ -726,16 +871,20 @@ def main() -> int:
     rows.update(approx_rows)
     launches["project_approx"] = approx_launches["project_approx"]
     torch.cuda.empty_cache()
-    rows.update(phase_paged(index, targets, front, native, kernels, D, host))
+    rows.update(phase_paged(index, targets, front, native_rows, kernels, D,
+                            host))
     tmp = tempfile.mkdtemp(prefix="impg_smoke_")
     try:
         phase_cli(tmp, kernels)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    jax = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
-    if jax:
-        raise AssertionError(f"the port's paths imported JAX: {jax[:5]}")
-    print(f"[done] smoke_s={time.perf_counter() - t_start:.1f}", flush=True)
+    loaded = [m for m, mod in sys.modules.items()
+              if guard.blocked(m) and mod is not None]
+    if guard.tried or loaded:
+        raise AssertionError(f"the port's paths tried to import "
+                             f"{sorted(set(guard.tried + loaded))[:5]}")
+    print(f"[done] smoke_s={time.perf_counter() - t_start:.1f} "
+          "imports_refused=0", flush=True)
 
     table = [
         ("stab_count", "stab_count", "impg_tpu_torch/csrc/stab_count.cu",
@@ -756,7 +905,8 @@ def main() -> int:
              launches=launches[name],
              max_abs_err=max(r["max_abs_err"] for key, r in rows.items()
                              if key.split("/")[0] == name),
-             ms=rows[key]["ms"], plain_ms=rows[key]["plain_ms"])
+             **{k: rows[key][k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")})
         for name, key, src, rep in table
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

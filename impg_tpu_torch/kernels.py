@@ -51,7 +51,7 @@ _SIGNATURES = {
     "impg_project_lanes": (
         _P, _I32, _I64, _I64, _P, _P, _P, _I32,
         _P, _P, _P, _P, _P, _P,
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+        _P, _P, _P, _I64,
         _I32, _I32, ctypes.c_uint32, _P, _P, _P,
     ),
     "impg_project_approx": (
@@ -60,8 +60,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I32,
         _I32, ctypes.c_uint32, _P, _P, _P,
     ),
-    "impg_compact_count": (_P, _I64, _P, _P),
-    "impg_compact_scatter": (_P, _I64, _P, _P, _P, _I32, _I64, _P, _P),
+    "impg_compact": (_P, _I64, _P, _I32, _P, _P, _P),
 }
 
 _launches = dict.fromkeys(KERNELS, 0)
@@ -164,11 +163,9 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(kernel: str | None, entry: str, *args) -> bool:
+def launch(kernel: str, entry: str, *args) -> bool:
     """Call C entry point `entry`; raise on a CUDA error.  Returns whether
-    it launched a kernel, and if it did, adds one to `kernel`'s count; a
-    wrapper that makes several entry calls for one kernel (compact's two
-    passes) passes kernel=None for all but the first."""
+    it launched a kernel, and if it did, adds one to `kernel`'s count."""
     lib = library()
     err = getattr(lib, entry)(*args)
     if err == NO_LAUNCH:
@@ -176,8 +173,7 @@ def launch(kernel: str | None, entry: str, *args) -> bool:
     if err != 0:
         msg = lib.impg_cuda_error_string(err).decode()
         raise RuntimeError(f"{entry}: CUDA error {err}: {msg}")
-    if kernel is not None:
-        _launches[kernel] += 1
+    _launches[kernel] += 1
     return True
 
 

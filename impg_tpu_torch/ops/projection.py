@@ -1,8 +1,8 @@
 """Closed-form batched coordinate projection through alignments, in torch.
 
-Plain-torch counterpart of impg_tpu/ops/projection.py:project_batch with the
-same keyword signature and the same `ProjectionResult` fields; see that module
-for the semantics.  On the device path the same arithmetic runs fused inside
+Plain-torch counterpart of ops/projection_np.py:project_batch (the port's copy
+of impg_tpu/ops/projection.py) with the same keyword signature and the same
+`ProjectionResult` fields; see that module for the semantics.  On the device path the same arithmetic runs fused inside
 the K-C kernel (csrc/project_lanes.cu); this version is that kernel's plain
 twin and the CPU path.
 
@@ -18,8 +18,8 @@ from __future__ import annotations
 
 import torch
 
-from impg_tpu.core import cigar
-from impg_tpu.ops.projection import ProjectionResult
+from impg_tpu_torch.core import cigar
+from impg_tpu_torch.ops.projection_np import ProjectionResult
 
 _SEARCH_ITERS = 31
 

@@ -46,3 +46,17 @@ def upload_i32(a: np.ndarray, device) -> torch.Tensor:
     if dev.type == "cuda":
         return t.pin_memory().to(dev, non_blocking=True)
     return t.clone()
+
+
+def upload_i32_columns(cols: list, device) -> torch.Tensor:
+    """int32 [n, len(cols)] tensor on `device` whose column i holds cols[i]
+    (each as `as_i32`).  Each column goes up as its own contiguous array
+    (`upload_i32`) and is written into its strided column on the device, so
+    the host does no interleaving and the device holds one column's copy
+    at a time on top of the result."""
+    dev = torch.device(device)
+    out = torch.empty((len(cols[0]), len(cols)), dtype=torch.int32,
+                      device=dev)
+    for i, c in enumerate(cols):
+        out[:, i].copy_(upload_i32(np.asarray(c), dev))
+    return out

@@ -15,7 +15,8 @@ answered by three hand-written kernels and two pieces of torch glue:
      and the closed-form projection (ops/projection.py) fused; it writes a
      valid byte and the requested RESULT_FIELDS rows.
   4. K-D `compact` (csrc/compact.cu): order-preserving stream compaction of
-     the valid lanes into [n_fields, n_hits], then one device->host copy.
+     the valid lanes into [n_fields, n_hits] in one launch (a decoupled
+     look-back), then one device->host copy.
 
 Approximate (tracepoint) walks replace step 3 with K-E `project_approx`
 (csrc/project_approx.cu): the same exact lanes, hit gate and clip, then the
@@ -40,7 +41,7 @@ import torch
 from impg_tpu_torch import kernels
 from impg_tpu_torch.ops import approx, projection
 from impg_tpu_torch.ops.stab_count import stab_counts
-from impg_tpu_torch.ops.xfer import check_device, upload_i32
+from impg_tpu_torch.ops.xfer import check_device, upload_i32, upload_i32_columns
 
 # Output fields of a query step, in the JAX engine's row order
 # (impg_tpu/query/device.py:RESULT_FIELDS).
@@ -66,7 +67,7 @@ RESULT_FIELDS = (
 )
 STATS_FIELDS = ("matches", "mismatches", "i_count", "d_count", "i_bp", "d_bp")
 _STATS_MASK = sum(1 << RESULT_FIELDS.index(f) for f in STATS_FIELDS)
-_COMPACT_BLOCK = 1024  # lanes per block of csrc/compact.cu
+_COMPACT_TILE = 4096  # lanes per tile of csrc/compact.cu (kTile)
 _MAX_LANES = 2**31 - 1
 # Lanes per K-C launch: bounds the [n_fields, lanes] scratch (18 fields x
 # 2^24 lanes x 4 B = 1.2 GB) and keeps lane indices far inside int32.
@@ -122,7 +123,9 @@ class TorchDeviceIndex:
     op_off: torch.Tensor  # [N]
     op_cnt: torch.Tensor  # [N]
     tgt_offsets: torch.Tensor  # [n_seqs + 1]
-    arena: dict  # PROJECTION_CORE (+ STATS_KEYS once uploaded); runs bit-cast
+    # PROJECTION_CORE (+ STATS_KEYS once uploaded) in `arena_tensors`'
+    # layout; runs bit-cast.
+    arena: dict
     n_records: int
     search_iters: int  # 2**iters > max op_cnt
     window_iters: int  # 2**iters > max records per target
@@ -135,6 +138,9 @@ class TorchDeviceIndex:
         "op_cnt",
     )
     PROJECTION_CORE = ("runs", "cum_t", "cum_q", "irun_before", "irun_after")
+    # The PROJECTION_CORE arrays that K-C reads together at a boundary run,
+    # interleaved on the device (`arena_tensors`).
+    RUN_KEYS = ("runs", "cum_q", "irun_before", "irun_after")
     STATS_KEYS = (
         "cum_match", "cum_mm", "cum_icnt", "cum_dcnt", "cum_ibp", "cum_dbp",
     )
@@ -167,15 +173,15 @@ class TorchDeviceIndex:
         op_cnt = np.asarray(arrays["op_cnt"])
         tree = np.diff(tgt_offsets)
         up = lambda a: upload_i32(np.asarray(a), dev)  # noqa: E731
+        arena = arena_tensors(
+            arrays, [k for k in cls.PROJECTION_CORE + cls.STATS_KEYS
+                     if k in arrays], dev,
+        )
         return cls(
             **{k: up(arrays[k]) for k in cls.RECORD_KEYS},
             cummax_te=up(cummax),
             tgt_offsets=up(tgt_offsets),
-            arena={
-                k: up(arrays[k])
-                for k in cls.PROJECTION_CORE + cls.STATS_KEYS
-                if k in arrays
-            },
+            arena=arena,
             n_records=int(t_end.size),
             search_iters=_iters_for(int(op_cnt.max()) if op_cnt.size else 1),
             window_iters=_iters_for(int(tree.max()) if tree.size else 1),
@@ -213,18 +219,56 @@ class TorchDeviceIndex:
     def upload_arena(self, arena_arrays: dict) -> None:
         """Upload the PROJECTION_CORE arena arrays (exact projection)."""
         _check_arena_size(arena_arrays)
-        for k in self.PROJECTION_CORE:
-            self.arena[k] = upload_i32(np.asarray(arena_arrays[k]), self.device)
+        self.arena.update(arena_tensors(arena_arrays, self.PROJECTION_CORE,
+                                        self.device))
 
     def upload_stats(self, arena_arrays: dict) -> None:
-        for k in self.STATS_KEYS:
-            self.arena[k] = upload_i32(np.asarray(arena_arrays[k]), self.device)
+        self.arena.update(arena_tensors(arena_arrays, self.STATS_KEYS,
+                                        self.device))
 
     def nbytes(self) -> int:
         ts = [getattr(self, k) for k in self.RECORD_KEYS]
         ts += [self.cummax_te, self.tgt_offsets, *self.arena.values()]
         ts += list((self.tp or {}).values())
         return sum(t.numel() * t.element_size() for t in ts)
+
+
+def arena_tensors(arrays: dict, keys, device) -> dict:
+    """The arena arrays named in `keys` (whole groups of them) on `device`,
+    in the layout K-C reads: `cum_t`, which the run searches probe, as an
+    array of its own; the RUN_KEYS (runs, cum_q, irun_before, irun_after)
+    as the columns of one int32 [n_runs, 4] tensor and the STATS_KEYS as
+    those of one [n_runs, 6] tensor.  Interleaved, the values K-C needs at a
+    boundary run come in one 16-byte load (and the six stats in three
+    8-byte ones) where separate arrays cost a 32-byte sector each; the
+    plain twin reads the column views as arrays."""
+    out = {}
+    for group in (("cum_t",), TorchDeviceIndex.RUN_KEYS,
+                  TorchDeviceIndex.STATS_KEYS):
+        present = [k for k in group if k in keys]
+        if not present:
+            continue
+        if len(present) != len(group):
+            raise ValueError(f"arena arrays {group} upload together")
+        if len(group) == 1:
+            out[group[0]] = upload_i32(np.asarray(arrays[group[0]]), device)
+            continue
+        t = upload_i32_columns([arrays[k] for k in group], device)
+        out.update({k: t[:, i] for i, k in enumerate(group)})
+    return out
+
+
+def _columns_base(arena: dict, group) -> int:
+    """Pointer to the [n_runs, len(group)] tensor behind `group`'s column
+    views, checked to be `arena_tensors`' layout."""
+    base = arena[group[0]]
+    for i, k in enumerate(group):
+        t = arena[k]
+        if (t.stride() != (len(group),)
+                or t.data_ptr() != base.data_ptr() + 4 * i):
+            raise ValueError(f"arena arrays {group} must be the interleaved "
+                             "columns that arena_tensors makes")
+    return base.data_ptr()
 
 
 def _check_arena_size(arena_arrays: dict) -> None:
@@ -413,8 +457,8 @@ def project_lanes(dindex: TorchDeviceIndex, lane_off, win_lo, q_s, q_e, *,
         dindex.t_start.data_ptr(), dindex.t_end.data_ptr(),
         dindex.strand.data_ptr(), dindex.query_id.data_ptr(),
         dindex.op_off.data_ptr(), dindex.op_cnt.data_ptr(),
-        *(a[k].data_ptr() for k in dindex.PROJECTION_CORE),
-        *(a[k].data_ptr() if with_stats else None for k in dindex.STATS_KEYS),
+        a["cum_t"].data_ptr(), _columns_base(a, dindex.RUN_KEYS),
+        _columns_base(a, dindex.STATS_KEYS) if with_stats else None,
         a["runs"].shape[0], int(clip_overlap), int(with_stats), mask,
         valid.data_ptr(), rows.data_ptr(), kernels.stream_of(valid),
     )
@@ -507,8 +551,7 @@ def compact_plain(valid, rows):
     return rows.index_select(1, torch.nonzero(valid, as_tuple=True)[0])
 
 
-def compact(valid, rows):
-    """int32 [n_rows, n_hits]: K-D on CUDA tensors, the plain twin on CPU."""
+def _check_compact(valid, rows) -> torch.device:
     n_lanes = valid.shape[0]
     if (valid.dtype != torch.uint8 or valid.dim() != 1
             or not valid.is_contiguous()):
@@ -516,26 +559,43 @@ def compact(valid, rows):
     if (rows.dtype != torch.int32 or rows.dim() != 2
             or rows.shape[1] != n_lanes or not rows.is_contiguous()):
         raise ValueError("rows: expected a contiguous int32 [n_rows, n_lanes]")
-    dev = _device_of(valid, rows)
-    if dev.type == "cpu":
-        return compact_plain(valid, rows)
-    n_rows = rows.shape[0]
-    if n_lanes == 0:
-        return torch.empty((n_rows, 0), dtype=torch.int32, device=dev)
-    n_blocks = -(-n_lanes // _COMPACT_BLOCK)
-    block_cnt = torch.empty(n_blocks, dtype=torch.int32, device=dev)
-    stream = kernels.stream_of(valid)
-    kernels.launch("compact", "impg_compact_count", valid.data_ptr(), n_lanes,
-                   block_cnt.data_ptr(), stream)
-    block_incl = torch.cumsum(block_cnt, 0)  # int64
-    n_hits = int(block_incl[-1])
-    out = torch.empty((n_rows, n_hits), dtype=torch.int32, device=dev)
+    if n_lanes > _MAX_LANES:
+        raise ValueError(f"compact: {n_lanes} lanes exceed int32")
+    return _device_of(valid, rows)
+
+
+def compact_launch(valid, rows):
+    """Launch K-D on CUDA tensors and return at once: (out, scratch), where
+    out is int32 [n_rows, n_lanes] and the hits are its first
+    int(scratch[-1]) columns.  Per tile the scratch holds a 64-bit status
+    word, then the tile counter and n_hits; the entry point zeroes it."""
+    if _check_compact(valid, rows).type != "cuda":
+        raise ValueError("compact_launch: expected CUDA tensors")
+    n_lanes = valid.shape[0]
+    out = torch.empty((rows.shape[0], n_lanes), dtype=torch.int32,
+                      device=valid.device)
+    scratch = torch.empty(-(-n_lanes // _COMPACT_TILE) + 2,
+                          dtype=torch.int64, device=valid.device)
     kernels.launch(
-        None, "impg_compact_scatter", valid.data_ptr(), n_lanes,
-        block_cnt.data_ptr(), block_incl.data_ptr(), rows.data_ptr(), n_rows,
-        n_hits, out.data_ptr(), stream,
+        "compact", "impg_compact", valid.data_ptr(), n_lanes,
+        rows.data_ptr(), rows.shape[0], out.data_ptr(), scratch.data_ptr(),
+        kernels.stream_of(valid),
     )
-    return out
+    return out, scratch
+
+
+def compact(valid, rows):
+    """int32 [n_rows, n_hits]: K-D on CUDA tensors, the plain twin on CPU.
+
+    On CUDA the result is a view of the first n_hits columns of an
+    [n_rows, n_lanes] buffer (row stride n_lanes); the one host read is
+    n_hits, after the kernel."""
+    if _check_compact(valid, rows).type == "cpu":
+        return compact_plain(valid, rows)
+    if valid.shape[0] == 0:
+        return rows[:, :0]
+    out, scratch = compact_launch(valid, rows)
+    return out[:, :int(scratch[-1])]
 
 
 # ── engine ──────────────────────────────────────────────────────────────

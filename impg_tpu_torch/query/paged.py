@@ -57,6 +57,7 @@ from impg_tpu_torch.query.device import (
     mask_fields,
     project_lanes,
     stab_windows,
+    arena_tensors,
 )
 from impg_tpu_torch.ops.stab_count import stab_counts
 from impg_tpu_torch.ops.xfer import check_device, upload_i32
@@ -173,8 +174,8 @@ class TorchPagedEngine:
         keys = TorchDeviceIndex.PROJECTION_CORE + (
             TorchDeviceIndex.STATS_KEYS if self.with_stats else ()
         )
-        arena = {k: upload_i32(getattr(a, k)[gather], self.device)
-                 for k in keys}
+        arena = arena_tensors({k: getattr(a, k)[gather] for k in keys}, keys,
+                              self.device)
         op_off = upload_i32(page_off[:-1], self.device)
         self.h2d_bytes += sum(t.numel() * 4 for t in (op_off, *arena.values()))
         ri = self.rindex

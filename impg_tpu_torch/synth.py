@@ -3,19 +3,18 @@
 `realistic_directed_index` is the generator of tests/datagen.py of the same
 name, kept here so that a run of the port (chip_smoke.py) imports only
 impg_tpu_torch; tests/test_torch_synth.py holds the two equal.  It builds the
-index through impg_tpu's numpy index modules (core/, index/), which import no
-JAX.
+index through the port's own index modules (core/, index/).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from impg_tpu.core import arena as arena_mod
-from impg_tpu.core import cigar
-from impg_tpu.core.arena import CigarArena, DirectedRecords
-from impg_tpu.core.seqidx import SequenceIndex
-from impg_tpu.index.impg_index import ImpgIndex
+from impg_tpu_torch.core import arena as arena_mod
+from impg_tpu_torch.core import cigar
+from impg_tpu_torch.core.arena import CigarArena, DirectedRecords
+from impg_tpu_torch.core.seqidx import SequenceIndex
+from impg_tpu_torch.index.impg_index import ImpgIndex
 
 
 def realistic_directed_index(

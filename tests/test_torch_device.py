@@ -223,3 +223,25 @@ def test_parse_ptxas_report():
         "impg_k_stab_count": dict(spill_stores=8, spill_loads=4,
                                   registers=35, smem=12288),
     }
+
+
+def test_arena_layout_interleaves_run_and_stats_columns():
+    """On the device the RUN_KEYS and the STATS_KEYS are column views of one
+    [n_runs, 4] and one [n_runs, 6] tensor, cum_t an array of its own: the
+    layout K-C reads.  Separate arrays are refused before a launch."""
+    D = tdev.TorchDeviceIndex
+    keys = D.PROJECTION_CORE + D.STATS_KEYS
+    arrays = {k: np.arange(7, dtype=np.int32) * 10 + i
+              for i, k in enumerate(keys)}
+    arena = tdev.arena_tensors(arrays, keys, "cpu")
+    assert set(arena) == set(keys)
+    for k, v in arrays.items():
+        assert np.array_equal(arena[k].numpy(), v), k
+    assert arena["cum_t"].is_contiguous()
+    for group in (D.RUN_KEYS, D.STATS_KEYS):
+        assert tdev._columns_base(arena, group) == arena[group[0]].data_ptr()
+        separate = {k: torch.from_numpy(arrays[k]) for k in group}
+        with pytest.raises(ValueError, match="interleaved"):
+            tdev._columns_base(separate, group)
+    with pytest.raises(ValueError, match="together"):
+        tdev.arena_tensors(arrays, ("runs", "cum_t"), "cpu")

@@ -44,10 +44,10 @@ def test_launch_counts_a_launch(fake_library):
     lib = fake_library(0)
     assert kernels.launch("windows", "impg_windows", 1, 2)
     assert kernels.launch("windows", "impg_windows", 1, 2)
-    assert kernels.launch(None, "impg_compact_scatter")
+    assert kernels.launch("compact", "impg_compact")
     assert lib.calls == 3
     assert kernels.launch_counts() == dict(
-        stab_count=0, windows=2, project_lanes=0, compact=0, project_approx=0
+        stab_count=0, windows=2, project_lanes=0, compact=1, project_approx=0
     )
 
 
@@ -55,7 +55,7 @@ def test_empty_call_leaves_count_unchanged(fake_library):
     lib = fake_library(kernels.NO_LAUNCH)
     for name, entry in (("stab_count", "impg_stab_count"),
                         ("project_lanes", "impg_project_lanes"),
-                        ("compact", "impg_compact_count"),
+                        ("compact", "impg_compact"),
                         ("project_approx", "impg_project_approx")):
         assert kernels.launch(name, entry) is False
     assert lib.calls == 4

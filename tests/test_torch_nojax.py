@@ -1,7 +1,9 @@
-"""The port must run where JAX is not installed, and must not start JAX where
-it is: a fresh interpreter with `import jax` blocked, and every attempt
-recorded, imports the port and runs one small CPU query through the engines
-and through the CLI (exact and approximate, resident and paged, stats)."""
+"""The port must run where neither JAX nor impg_tpu is installed, and must not
+load either where they are: a fresh interpreter with `import jax` and `import
+impg_tpu` blocked (names matched exactly, so impg_tpu_torch passes), and every
+attempt recorded, imports the port and runs one small CPU query through the
+engines (exact, approximate, paged) and through the CLI (`index`, `query -x`
+bed/bedpe/paf, `--approximate`, paged, `stats -r/-b`)."""
 
 import os
 import random
@@ -17,11 +19,19 @@ import sys
 tried = []
 
 
+BLOCKED = ("jax", "impg_tpu")
+
+
+def blocked(name):
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+
 class NoJax:
-    # Any `import jax` raises ImportError and is recorded: code that catches
-    # the error (a fallback for hosts without JAX) still counts.
+    # Any `import jax` or `import impg_tpu` raises ImportError and is
+    # recorded: code that catches the error (a fallback for hosts without
+    # them) still counts.
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith("jax."):
+        if blocked(name):
             tried.append(name)
             raise ImportError(f"blocked: {name}")
 
@@ -30,6 +40,7 @@ sys.meta_path.insert(0, NoJax())
 sys.path.insert(0, sys.argv[1])
 import impg_tpu_torch
 import impg_tpu_torch.cli
+import impg_tpu_torch.io.native
 import impg_tpu_torch.ops.approx
 import impg_tpu_torch.query.device
 import impg_tpu_torch.query.paged
@@ -53,18 +64,26 @@ for eng, approximate in engines:
     )
     assert len(blocks[0]) > 1, len(blocks[0])
 import os
-query = ["query", "-a", sys.argv[2], "-r", "ref:500-2500", "-d", "100", "-x",
-         "-o", "bed"]
+assert impg_tpu_torch.io.native.load() is not None
+assert impg_tpu_torch.cli.main(["index", "-a", sys.argv[2]]) == 0
+query = ["query", "-a", sys.argv[2], "-r", "ref:500-2500", "-d", "100", "-x"]
 stats = ["stats", "-a", sys.argv[2], "-r", "ref:500-2500"]
-for argv, budget in ((query, None), (query + ["--approximate"], None),
-                     (stats, None), (query, "4096"), (stats, "4096")):
+bed = sys.argv[2] + ".bed"
+with open(bed, "w") as fh:
+    fh.write("ref\t500\t2500\ts1\t0\t3000\n")
+runs = [(query + ["-o", fmt], None, spec) for fmt in ("bed", "bedpe", "paf")
+        for spec in ("device", "host", "auto")]
+runs += [(query + ["--approximate", "-o", "bed"], None, "device"),
+         (stats, None, "device"), (stats[:3] + ["-b", bed], None, "device"),
+         (query + ["-o", "bed"], "4096", "device"),
+         (stats[:3] + ["-b", bed], "4096", "device")]
+for argv, budget, spec in runs:
     if budget:  # pages the index
         os.environ["IMPG_HBM_BUDGET_BYTES"] = budget
-    rc = impg_tpu_torch.cli.main(argv + ["--compute-engine", "device"],
+    rc = impg_tpu_torch.cli.main(argv + ["--compute-engine", spec],
                                  device="cpu")
-    assert rc == 0
-loaded = [m for m, mod in sys.modules.items()
-          if (m == "jax" or m.startswith("jax.")) and mod is not None]
+    assert rc == 0, argv
+loaded = [m for m, mod in sys.modules.items() if blocked(m) and mod is not None]
 assert not loaded, loaded
 assert not tried, tried
 print("NOJAX_OK", len(blocks[0]))
