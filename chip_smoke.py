@@ -80,8 +80,8 @@ N_SEEDS = 256
 # The paged phase's budget: this share of the index's lean bytes.
 PAGED_SHARE = 3
 DEVICE = torch.device("cuda", 0)
-# The card's peaks for the bound (on-chip-measurement guide, H100 SXM at
-# 700 W): HBM bytes per second, and 32-bit scalar operations per second (the
+# The card's peaks for the bound (H100 SXM datasheet, at 700 W): HBM bytes
+# per second, and 32-bit scalar operations per second (the
 # float32 rate outside the tensor cores, taken for the integer ops here).
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
