@@ -47,6 +47,20 @@ just after, and fails unless every kernel of that path launched:
              the Gram and K-H (ranks equal to the host's, truth pair first)
      genotype profile  one more warm map and genotype under cProfile and
              torch.profiler
+  3. kernels K-I path_sgd: one epoch of the sort graph's layout through the
+             kernel and through its twin, both on the card, from the same
+             shuffled start: draw mismatches (0), the kernel's moves within
+             1e-4 of the twin's largest move and its positions within 1e-4
+             of the span (float atomics sum in any order; the span also
+             from the path positions), times, bound; then 30 epochs of
+             each, their moves held the same way and their positions'
+             Spearman rho (>= 0.999)
+  4. sort    `sort_pipeline(text, "Ygs", sgd_backend="device")` on a
+             90-haplotype variation graph of a 1 Mb locus
+             (synth.variation_graph): seconds per stage, K-I launches, peak
+             device memory, all 90 spellings unchanged, segments 1..N in a
+             topological order, the layout's Spearman rho against path 0;
+             then one epoch of the host numpy loop on the same graph
   5. cli     impg_tpu_torch.cli's query -x -o bed|paf, stats -b, query -x
              --approximate -o bed, and query -x -o bed and stats -b under
              IMPG_HBM_BUDGET_BYTES=16384 (paged): --compute-engine device,
@@ -54,7 +68,9 @@ just after, and fails unless every kernel of that path launched:
              to host (`python -m impg_tpu_torch.cli` in a subprocess), each
              through the expected engine and kernels; then syng and map -o
              pack-tsv byte-identical, and genotype cos over a cohort of two
-             packs equal in genotype and rank, through K-F, K-G and K-H
+             packs equal in genotype and rank, through K-F, K-G and K-H;
+             `sort --sgd-backend device` (through K-I) and `numpy` (the
+             library's bytes) keep the spellings, `--pipeline Q` exits 2
 The last two lines are the kernel table and the result as JSON.  Imports
 only impg_tpu_torch and, for phase 5's demo data, examples/ (which reaches
 tests/datagen.py and tests/pyref.py): an import guard installed before the
@@ -111,6 +127,30 @@ LOCUS_LEN = 1_000_000
 N_READS = 200_000
 READ_LEN = 150
 GT_SAMPLES = {"het": ("hap3", "hap40"), "hom": ("hap25", "hap25")}
+# The [4 sort] graph: the same locus size and panel as [4 genotype], as a
+# variation graph (about 196k segments, 11.9M path steps).
+SORT_HAPS = 90
+SORT_LOCUS = 1_000_000
+# Operations per sample of K-I that the function itself needs, in 32-bit
+# operations: the Philox4x32-10 draw (about 100: per round two 32 x 32
+# multiplies, each a high and a low word, and four xors; the key bumps), the
+# mapping's integer work (about 12: the index's multiply-high, the offset's
+# bits, the sign, two clips), the float64 offset (about 25 operations:
+# convert, scale, exp, ceil, convert; counted twice, at half the 32-bit
+# rate), the pull (about 20: subtracts, abs, max, reciprocal, min, compare,
+# divide, multiplies) and the four accumulations.
+PATH_SGD_OPS_PER_SAMPLE = 100 + 12 + 2 * 25 + 20 + 4
+# K-I's check starts from the sort graph's first-seen positions dealt to the
+# segments in this seed's random order, so that the layout has real moves
+# to make (from the path positions an epoch moves a segment tens of bp, less
+# than a gate of 1e-4 of the span); the kernel's moves must match the twin's
+# within this share of the twin's largest move (on an H100 the gap was
+# 6.3e-7 of it over one epoch and 30: a few float32 ulps of the positions).
+PATH_SGD_SHUFFLE_SEED = 11
+PATH_SGD_MOVE_TOL = 1e-4
+# And one epoch's positions, from either start, within this share of the
+# graph's span.
+PATH_SGD_SPAN_TOL = 1e-4
 # K-H's check at bench.py's genotype_e2e shape.
 GT_CANDIDATES = 4096
 GT_FEATURES = 131_072
@@ -1174,6 +1214,9 @@ def phase_cli(tmp: str, kernels) -> None:
         parts.append(f"{label}: {len(dev.splitlines())} lines identical, "
                      f"{kind} engine{pages}, launches {json.dumps(launches)}")
     parts += cli_syng(tmp, on_host, on_device)
+    from impg_tpu_torch import synth
+
+    parts += cli_sort(tmp, kernels, synth)
     print("[5 cli] " + "; ".join(parts), flush=True)
 
 
@@ -1234,6 +1277,308 @@ def cli_syng(tmp: str, on_host, on_device) -> list:
     return parts
 
 
+def _spearman(a: np.ndarray, b: np.ndarray) -> float:
+    """Spearman's rho of two vectors without ties (ranks by stable sort)."""
+    ra = np.empty(a.size)
+    rb = np.empty(b.size)
+    ra[np.argsort(a, kind="stable")] = np.arange(a.size)
+    rb[np.argsort(b, kind="stable")] = np.arange(b.size)
+    return float(np.corrcoef(ra, rb)[0, 1])
+
+
+def sort_data(synth, gfa_columns, sortgfa):
+    """The [4 sort] input: (GFA text, its columns, the layout's inputs
+    (step_node wrapped, x0, pstart, pend, eta_max, lam, step_pos))."""
+    t0 = time.perf_counter()
+    text = synth.variation_graph(seed=5, n_haps=SORT_HAPS,
+                                 locus_len=SORT_LOCUS)
+    gen_s = time.perf_counter() - t0
+    gc = gfa_columns.parse_gfa_columns(text)
+    step_node, step_pos, bounds = sortgfa.sgd_inputs(gc)
+    setup = sortgfa.sgd_setup(gc.n_segs, step_node, step_pos, bounds)
+    print(f"[setup] sort graph: {SORT_HAPS} haplotypes x ~{SORT_LOCUS} bp, "
+          f"{gc.n_segs} segments, {step_node.size} steps, "
+          f"{gc.link_a.size} links, {len(text)} bytes, generated in "
+          f"{gen_s:.1f}s", flush=True)
+    return text, gc, (*setup, step_pos)
+
+
+def _move_gap(xk, xp, start) -> dict:
+    """How far the kernel's positions xk stand from the twin's xp, against
+    how far the twin moved from `start` (all float32 on the card; differences
+    in float64): the largest move and the largest gap, the moves' and gaps'
+    L2 norms, and the float32 spacing at the largest position (the rounding
+    that float atomics summed in another order can leave)."""
+    xk, xp, start = (v.double() for v in (xk, xp, start))
+    move = xp - start
+    gap = xk - xp
+    top = float(torch.maximum(xp.abs().max(), xk.abs().max()))
+    return dict(move=float(move.abs().max()), gap=float(gap.abs().max()),
+                move_l2=float(move.norm()), gap_l2=float(gap.norm()),
+                ulp=float(np.spacing(np.float32(top))))
+
+
+def _check_moves(what: str, g: dict) -> None:
+    """The kernel's moves equal the twin's within PATH_SGD_MOVE_TOL of the
+    twin's largest move (and in L2), a tolerance 16 times the float32
+    rounding at least, so that the gate cannot pass on rounding alone."""
+    tol = PATH_SGD_MOVE_TOL * g["move"]
+    if tol < 16 * g["ulp"]:
+        raise AssertionError(f"path_sgd {what}: the twin moved {g['move']} "
+                             f"at most; the gate would sit in rounding")
+    if g["gap"] > tol or g["gap_l2"] > PATH_SGD_MOVE_TOL * g["move_l2"]:
+        raise AssertionError(f"path_sgd {what}: kernel and twin moves differ "
+                             f"by {g['gap']} (L2 {g['gap_l2']}) against a "
+                             f"largest twin move of {g['move']} (L2 "
+                             f"{g['move_l2']})")
+
+
+def phase_path_sgd_kernels(PS, inputs) -> dict:
+    """K-I against its twin on the card, from one start and epoch 0.  The
+    start is the graph's first-seen positions dealt to the segments in a
+    seeded random order (PATH_SGD_SHUFFLE_SEED), so that the layout has
+    real work; from the path positions themselves one epoch moves a segment
+    a few bp, which is also run.  Held: the kernel's draws (its `pairs`
+    output) against the twin's, 0 mismatches; one epoch's moves, kernel
+    against twin, within PATH_SGD_MOVE_TOL of the twin's largest move
+    (float atomics sum in any order), and its positions from either start
+    within PATH_SGD_SPAN_TOL of the span; times in turns, the kernel's
+    device time, the bound; then 30 epochs of each from the same start,
+    their moves held the same way and their positions' Spearman rho
+    (>= 0.999), beside the rho of the start against the twin's end (how
+    far the order moved)."""
+    node, x0, pstart, pend, eta_max, lam, step_pos = inputs
+    n, n_steps = x0.size, node.size
+    batch = 8 * n_steps
+    log_n = float(np.log(n_steps))
+    steps = PS.sgd_steps(node, step_pos, pstart, pend, n, DEVICE)
+    eta = PS.epoch_eta(eta_max, lam, 0)
+    xs = x0[np.random.default_rng(PATH_SGD_SHUFFLE_SEED).permutation(n)]
+    x_dev = torch.from_numpy(xs.astype(np.float32)).to(DEVICE)
+    acc = torch.zeros_like(x_dev)
+    cnt = torch.zeros_like(x_dev)
+
+    def kernel_epoch(x, pairs=None):
+        PS.sgd_epoch(x, steps, acc, cnt, 0, batch, eta, log_n, pairs=pairs)
+
+    def plain_epoch(x):
+        PS.epoch_plain(x, steps, 0, batch, eta, log_n)
+
+    x_path = torch.from_numpy(x0.astype(np.float32)).to(DEVICE)
+    xk = x_path.clone()
+    kernel_epoch(xk)
+    xp = x_path.clone()
+    plain_epoch(xp)
+    from_path = _move_gap(xk, xp, x_path)
+    del x_path
+    pairs = torch.empty((batch, 2), dtype=torch.int32, device=DEVICE)
+    xk = x_dev.clone()
+    kernel_epoch(xk, pairs)
+    xp = x_dev.clone()
+    plain_epoch(xp)
+    torch.cuda.synchronize()
+    ps = steps[:, 2].to(torch.int64)
+    pe = steps[:, 3].to(torch.int64)
+    mismatches = 0
+    chunk = 1 << 24
+    for first in range(0, batch, chunk):
+        i, j = PS.draw_pairs(ps, pe, 0, first, min(chunk, batch - first),
+                             log_n)
+        got = pairs[first:first + i.shape[0]].to(torch.int64)
+        mismatches += int(((got[:, 0] != i) | (got[:, 1] != j)).sum())
+    del pairs, ps, pe
+    one = _move_gap(xk, xp, x_dev)
+    scratch = x_dev.clone()
+    ms, pms = time_pair(lambda: kernel_epoch(scratch),
+                        lambda: plain_epoch(scratch), reps=2, rounds=2)
+    dev_ms = device_ms(lambda: kernel_epoch(scratch), reps=5)
+    t0 = time.perf_counter()
+    x30 = PS.sgd_epochs(xs, node, step_pos, pstart, pend, 30, batch, eta_max,
+                        lam, device=DEVICE)
+    k30_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xt = x_dev.clone()
+    for t in range(30):
+        PS.epoch_plain(xt, steps, t, batch, PS.epoch_eta(eta_max, lam, t),
+                       log_n)
+    torch.cuda.synchronize()
+    p30_s = time.perf_counter() - t0
+    thirty = _move_gap(torch.from_numpy(x30).to(DEVICE), xt, x_dev)
+    xt_np = xt.cpu().numpy().astype(np.float64)
+    rho = _spearman(x30, xt_np)
+    rho_start = _spearman(xs, xt_np)
+    row = dict(
+        max_abs_err=one["gap"], ms=ms, plain_ms=pms, library_ms=None,
+        device_ms=dev_ms,
+        **bound(16 * n_steps + 16 * n, PATH_SGD_OPS_PER_SAMPLE * batch),
+        shape=f"{n_steps} steps x 8 = {batch} samples over {n} segments",
+    )
+
+    def moves(g):
+        big = max(g["move"], 1e-30)
+        big_l2 = max(g["move_l2"], 1e-30)
+        return (f"max_move={g['move']:.6g} max_gap={g['gap']:.6g} "
+                f"gap_over_move={g['gap'] / big:.3g} "
+                f"l2_gap_over_move={g['gap_l2'] / big_l2:.3g} "
+                f"ulp={g['ulp']:.6g}")
+
+    span = float(step_pos.max() - step_pos.min())
+    print(f"[3 kernels] path_sgd/epoch {row['shape']}: draw_mismatches="
+          f"{mismatches}; one epoch from the shuffled start: {moves(one)} "
+          f"gap_over_span={one['gap'] / span:.3g} (tolerances "
+          f"{PATH_SGD_MOVE_TOL} x max_move and {PATH_SGD_SPAN_TOL} x span "
+          f"{span:.1f}: float atomics); from the path positions: "
+          f"{moves(from_path)} gap_over_span={from_path['gap'] / span:.3g}; "
+          f"kernel_ms={ms:.4f} plain_ms={pms:.4f} library_ms=none "
+          f"device_ms={dev_ms:.4f} bound_ms={row['bound_ms']:.4f} "
+          f"bound_by={row['bound_by']}; 30 epochs from the shuffled start: "
+          f"kernel_s={k30_s:.3f} twin_s={p30_s:.3f} {moves(thirty)} "
+          f"spearman_rho={rho:.6f} spearman_start_vs_twin_end="
+          f"{rho_start:.6f}", flush=True)
+    if mismatches:
+        raise AssertionError(f"path_sgd: {mismatches} draws differ")
+    _check_moves("one epoch", one)
+    if max(one["gap"], from_path["gap"]) > PATH_SGD_SPAN_TOL * span:
+        raise AssertionError(f"path_sgd: one epoch's positions differ from "
+                             f"the twin's by more than {PATH_SGD_SPAN_TOL} "
+                             f"of the span {span}")
+    _check_moves("30 epochs", thirty)
+    if rho < 0.999:
+        raise AssertionError(f"path_sgd: 30-epoch positions' rho {rho} "
+                             "< 0.999")
+    del steps, x_dev, acc, cnt, xk, xp, scratch, xt
+    torch.cuda.empty_cache()
+    return {"path_sgd/epoch": row}
+
+
+def _timed(times: dict, key: str, fn):
+    """`fn` wrapped to add its seconds to times[key]."""
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            times[key] = times.get(key, 0.0) + time.perf_counter() - t0
+    return run
+
+
+def phase_sort(text, gc, inputs, kernels, sortgfa, co, gfa_columns) -> dict:
+    """`sort_pipeline(text, "Ygs", sgd_backend="device")` with the launch
+    counts zeroed around it and each stage timed (module functions wrapped
+    for the run): parse, Y (the layout, on the card; then the segment
+    reorder), g, s, write.  Then: every path spells what it spelled,
+    segments are 1..N in a topological order of the links, the Spearman rho
+    of segment rank against path 0's step order, and one epoch of the host
+    numpy loop on the same graph.  Returns the launch counts."""
+    node, _x0, _ps, _pe, _eta, _lam, step_pos = inputs
+    before = co.path_spellings(gc)
+    times: dict = {}
+    patched = [(gfa_columns, "parse_gfa_columns", "parse"),
+               (sortgfa, "sgd_order_columns", "Y_layout"),
+               (co, "reorder_segments_columns", "Y_reorder"),
+               (co, "groom_columns", "g"),
+               (co, "topo_priority_columns", "s"),
+               (co, "write_columns", "write")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    try:
+        for mod, name, key in patched:
+            setattr(mod, name, _timed(times, key, getattr(mod, name)))
+        t0 = time.perf_counter()
+        out = sortgfa.sort_pipeline(text, "Ygs", sgd_backend="device",
+                                    device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("sort", launches, ("path_sgd",))
+    got = gfa_columns.parse_gfa_columns(out)
+    after = co.path_spellings(got)
+    if after != before or len(after) != SORT_HAPS:
+        raise AssertionError("sort: path spellings changed")
+    names = [got.names[i] for i in got.seg_name_idx.tolist()]
+    if names != [str(k + 1) for k in range(gc.n_segs)]:
+        raise AssertionError("sort: segments are not renumbered 1..N")
+    rank = np.asarray([int(x) for x in got.names], np.int64)
+    if not (rank[got.link_a] < rank[got.link_b]).all():
+        raise AssertionError("sort: a link points backwards after 's'")
+    walk = rank[got.step_name_idx[got.path_off[0]:got.path_off[1]]]
+    rho = _spearman(walk.astype(np.float64),
+                    np.arange(walk.size, dtype=np.float64))
+    n_steps = node.size
+    t0 = time.perf_counter()
+    step_node, step_pos_c, bounds = sortgfa.sgd_inputs(gc)
+    sortgfa._sgd_order_core(gc.n_segs, step_node, step_pos_c, bounds,
+                            epochs=1, backend="numpy")
+    host_epoch_s = time.perf_counter() - t0
+    print(f"[4 sort] segments={gc.n_segs} steps={n_steps} "
+          f"samples_per_epoch={8 * n_steps} epochs=30 wall_s={wall:.3f} "
+          + " ".join(f"{k}_s={v:.3f}" for k, v in times.items())
+          + f" launches={json.dumps(launches)} max_memory_allocated="
+          f"{peak} spellings_equal={len(after)}/{SORT_HAPS} "
+          f"renumbered_1_to_N_topological=True "
+          f"spearman_rank_vs_path0={rho:.6f} "
+          f"host_numpy_one_epoch_s={host_epoch_s:.3f} "
+          f"(extrapolated, not run: 30 epochs "
+          f"{30 * host_epoch_s:.1f}s)", flush=True)
+    return launches
+
+
+def cli_sort(tmp: str, kernels, synth) -> list:
+    """`sort` on a small variation graph: `--sgd-backend device` in this
+    process (through K-I, spellings kept), `--sgd-backend numpy` in a
+    subprocess (the library's bytes, spellings kept), `--pipeline Q` exits
+    2."""
+    from impg_tpu_torch import cli as tcli
+    from impg_tpu_torch.graph import columnar_ops as co
+    from impg_tpu_torch.graph import sortgfa
+    from impg_tpu_torch.graph.gfa_columns import parse_gfa_columns
+
+    text = synth.variation_graph(seed=2, n_haps=8, locus_len=50_000)
+    path = os.path.join(tmp, "locus.gfa")
+    with open(path, "w") as fh:
+        fh.write(text)
+    want = co.path_spellings(parse_gfa_columns(text))
+
+    def cli(*argv):
+        return subprocess.run(
+            [sys.executable, "-m", "impg_tpu_torch.cli", "sort", path, *argv],
+            cwd=tmp, env=dict(os.environ, PYTHONPATH=REPO),
+            capture_output=True, text=True, timeout=600,
+        )
+
+    out = os.path.join(tmp, "locus_device.gfa")
+    kernels.reset_launch_counts()
+    rc = tcli.main(["sort", path, "--sgd-backend", "device", "--output",
+                    out], device=DEVICE)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if rc != 0:
+        raise RuntimeError(f"cli sort --sgd-backend device rc={rc}")
+    check_launches("cli sort", launches, ("path_sgd",))
+    if co.path_spellings(parse_gfa_columns(_read(out).decode())) != want:
+        raise AssertionError("cli sort device: spellings changed")
+    r = cli("--sgd-backend", "numpy")
+    if r.returncode != 0:
+        raise RuntimeError(f"cli sort numpy rc={r.returncode}: {r.stderr}")
+    if r.stdout != sortgfa.sort_pipeline(text, "Ygs", "numpy"):
+        raise AssertionError("cli sort numpy: bytes differ from the library")
+    if co.path_spellings(parse_gfa_columns(r.stdout)) != want:
+        raise AssertionError("cli sort numpy: spellings changed")
+    q = cli("--pipeline", "Q")
+    if q.returncode != 2 or "unsupported sort pipeline step" not in q.stderr:
+        raise AssertionError(f"cli sort --pipeline Q rc={q.returncode}")
+    return [f"sort --sgd-backend device: {len(want)} spellings kept, "
+            f"launches {json.dumps(launches)}; --sgd-backend numpy: "
+            f"{len(r.stdout)} bytes equal to the library's, spellings kept; "
+            "--pipeline Q exits 2"]
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         raise SystemExit("chip_smoke: takes no arguments")
@@ -1251,6 +1596,10 @@ def main() -> int:
     from impg_tpu_torch.commands import genotype as gt_mod
     from impg_tpu_torch.genotype import core as gt_core
     from impg_tpu_torch.ops import diploid as OD
+    from impg_tpu_torch.ops import path_sgd as PS
+    from impg_tpu_torch.graph import columnar_ops as co
+    from impg_tpu_torch.graph import gfa_columns
+    from impg_tpu_torch.graph import sortgfa
     from impg_tpu_torch.ops import syncmer_device as SD
     from impg_tpu_torch.syng import pack as pack_mod
     from impg_tpu_torch.syng.index import SyngIndex
@@ -1319,6 +1668,12 @@ def main() -> int:
                                len(panel[0][1]))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    text, gc, sort_inputs = sort_data(synth, gfa_columns, sortgfa)
+    rows.update(phase_path_sgd_kernels(PS, sort_inputs))
+    launches["path_sgd"] = phase_sort(text, gc, sort_inputs, kernels,
+                                      sortgfa, co, gfa_columns)["path_sgd"]
+    del text, gc, sort_inputs
+    torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="impg_smoke_")
     try:
         phase_cli(tmp, kernels)
@@ -1352,6 +1707,8 @@ def main() -> int:
          "impg_tpu/ops/syncmer_jax.py:138"),
         ("diploid", "diploid/topk", "impg_tpu_torch/csrc/diploid.cu",
          "impg_tpu/genotype/core.py:300"),
+        ("path_sgd", "path_sgd/epoch", "impg_tpu_torch/csrc/path_sgd.cu",
+         "impg_tpu/graph/sortgfa.py:161"),
     ]
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,

@@ -1,8 +1,8 @@
 """Command line of the PyTorch/CUDA port.
 
-The port's own CLI for `index`, `query`, `stats`, `syng`, `map` and
-`genotype`, with impg_tpu.cli's argument names, defaults, messages and output
-bytes for them; it imports nothing of impg_tpu.  `--compute-engine
+The port's own CLI for `index`, `query`, `stats`, `syng`, `map`,
+`genotype` and `sort`, with impg_tpu.cli's argument names, defaults, messages
+and output bytes for them; it imports nothing of impg_tpu.  `--compute-engine
 device|auto` runs the port's engines:
 
   * `TorchDeviceEngine`, resident on the card; built with tracepoints (and
@@ -15,7 +15,11 @@ device|auto` runs the port's engines:
     `map --compute-engine device` maps reads with K-G (`auto` keeps both on
     the host, as impg_tpu.cli does), and `genotype cos|cosigt` scores
     ploidy-2 pairs with the cuBLAS Gram and K-H (device: always; auto: past
-    the FLOP crossover of genotype/core.auto_device_for_dense).
+    the FLOP crossover of genotype/core.auto_device_for_dense);
+  * `sort --sgd-backend device` (alias `jax`) lays the graph out with the
+    path-SGD kernel K-I; `auto` does so past impg_tpu's volume threshold of
+    5e8 samples when CUDA is available, else runs the numpy loop, which
+    writes impg_tpu's bytes.
 
 Not yet ported, and refused with exit status 2 before any input is read:
 every other subcommand of impg_tpu.cli; the FASTA, FASTA+PAF, GFA, MAF,
@@ -46,7 +50,7 @@ UNPORTED_COMMANDS = (
     "partition", "refine", "similarity", "lace", "align",
     "render", "read-index", "project", "render-graph",
     "normalize-self-loops", "normalize", "infer", "smooth", "graph",
-    "syng-repair", "export-1aln", "export-tpa", "agz", "syng2gfa", "sort",
+    "syng-repair", "export-1aln", "export-tpa", "agz", "syng2gfa",
     "crush", "gfa2vcf", "graph-report",
 )
 # Output formats of impg_tpu.cli's `query` that the port has not ported
@@ -662,6 +666,29 @@ def cmd_genotype(args, device: torch.device) -> int:
     return 0
 
 
+def cmd_sort(args, device: torch.device) -> int:
+    from impg_tpu_torch.graph import sortgfa as sortgfa_mod
+
+    if args.gfa == "-":
+        text = sys.stdin.read()
+    else:
+        with open(args.gfa) as fh:
+            text = fh.read()
+    try:
+        out_text = sortgfa_mod.sort_pipeline(
+            text, args.pipeline, sgd_backend=args.sgd_backend, device=device,
+        )
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.output:
+        with open(args.output, "w") as fh:
+            fh.write(out_text)
+    else:
+        sys.stdout.write(out_text)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="impg_tpu_torch",
@@ -847,6 +874,25 @@ def build_parser() -> argparse.ArgumentParser:
     p_gt.add_argument("--sample-name", default="sample")
     _add_engine_opt(p_gt)
     p_gt.set_defaults(func=cmd_genotype)
+
+    p_srt = sub.add_parser(
+        "sort",
+        help="Sort a GFA (Ygs: path-SGD 1D layout, groom, topological)",
+    )
+    p_srt.add_argument("gfa", help="GFA file (or - for stdin)")
+    p_srt.add_argument(
+        "--pipeline", default="Ygs",
+        help="Steps: Y = path-SGD, g = groom, s = topological (default Ygs)",
+    )
+    p_srt.add_argument(
+        "--sgd-backend", default="auto",
+        choices=["auto", "numpy", "device", "jax"],
+        help="Path-SGD engine: device (alias jax) = the K-I kernel on "
+        "cuda:0, one launch per epoch; numpy = host; auto = device only "
+        "when the update volume reaches 5e8 samples and CUDA is available",
+    )
+    p_srt.add_argument("--output", help="Output GFA (default stdout)")
+    p_srt.set_defaults(func=cmd_sort)
     return ap
 
 
@@ -871,7 +917,7 @@ def main(argv=None, device=None) -> int:
     command = _command_of(argv)
     if command in UNPORTED_COMMANDS:
         _fail(f"`{command}` is not yet ported to impg_tpu_torch "
-              "(ported: index, query, stats, syng, map, genotype)")
+              "(ported: index, query, stats, syng, map, genotype, sort)")
     args = build_parser().parse_args(argv)
     # index/query/stats take a list of alignment files (syng, map and
     # genotype take one syng index).

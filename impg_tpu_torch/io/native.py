@@ -1,16 +1,20 @@
 """ctypes binding to the port's native C++ host library (built on demand).
 
 The port's copy of impg_tpu/io/native.py, trimmed to what the query path
-needs: the library is built from the four sources in `impg_tpu_torch/native/`
+needs: the library is built from the six sources in `impg_tpu_torch/native/`
 (the PAF parser, the visited bookkeeping of the BFS, the C++ reference
-engine, the closed-syncmer extractor), copies of impg_tpu/native/'s files of
-the same names, with g++ at first use into `impg_tpu_torch/build/`.  `load()`
-binds the `impg_paf_*` and `sx_*` symbols; query/engine.py binds `vb_*` and
+engine, the closed-syncmer extractor, the GFA tokenizer, the path-spelling,
+token-stream and priority-topological-sort functions of the GFA layer),
+copies of impg_tpu/native/'s files of the same names, with g++ at first use
+into `impg_tpu_torch/build/`.  `load()` binds the `impg_paf_*`, `sx_*`,
+`impg_gfa_*`, `impg_spell_steps`, `impg_concat_tokens*` and
+`impg_topo_priority` symbols; query/engine.py binds `vb_*` and
 query/host_native.py `he_*`.
 
 Falls back gracefully: `load()` returns None when the shared library is
 missing and cannot be built, and io/paf.py then uses the pure-Python parser
-and query/engine.py the Python visited bookkeeping.
+and query/engine.py the Python visited bookkeeping.  The GFA layer has no
+such fallback: its bindings raise RuntimeError without the library.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from typing import Optional
 import numpy as np
 
 _SRC_NAMES = ("paf_parser.cpp", "visited.cpp", "host_engine.cpp",
-              "syncmer.cpp")
+              "syncmer.cpp", "gfa_parser.cpp", "spellc.cpp")
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _NATIVE_DIR = os.path.join(_PKG_DIR, "native")
 _BUILD_DIR = os.path.join(_PKG_DIR, "build")
@@ -223,8 +227,89 @@ def load():
         ctypes.POINTER(ctypes.c_int64),
     ]
 
+    _bind_gfa(lib)
     _lib = lib
     return _lib
+
+
+def _bind_gfa(lib) -> None:
+    """ctypes signatures of the GFA layer's symbols (gfa_parser.cpp,
+    spellc.cpp)."""
+    i8p = ctypes.POINTER(ctypes.c_int8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.impg_gfa_parse_mt.restype = ctypes.c_void_p
+    lib.impg_gfa_parse_mt.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int32,
+    ]
+    for name in ("impg_gfa_error", "impg_gfa_header"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_char_p
+        fn.argtypes = [ctypes.c_void_p]
+    for name in (
+        "impg_gfa_n_names", "impg_gfa_names_size", "impg_gfa_n_segs",
+        "impg_gfa_seq_size", "impg_gfa_n_links", "impg_gfa_n_paths",
+        "impg_gfa_path_names_size", "impg_gfa_n_steps",
+    ):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [ctypes.c_void_p]
+    for name, restype in {
+        "impg_gfa_name_offsets": i64p,
+        "impg_gfa_seg_name_idx": i32p,
+        "impg_gfa_seq_offsets": i64p,
+        "impg_gfa_link_a": i32p,
+        "impg_gfa_link_b": i32p,
+        "impg_gfa_link_a_rev": i8p,
+        "impg_gfa_link_b_rev": i8p,
+        "impg_gfa_path_name_offsets": i64p,
+        "impg_gfa_path_is_walk": i8p,
+        "impg_gfa_path_off": i64p,
+        "impg_gfa_step_name_idx": i32p,
+        "impg_gfa_step_rev": i8p,
+        "impg_gfa_names_buf": ctypes.POINTER(ctypes.c_char),
+        "impg_gfa_seq_buf": ctypes.POINTER(ctypes.c_char),
+        "impg_gfa_path_names_buf": ctypes.POINTER(ctypes.c_char),
+    }.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = [ctypes.c_void_p]
+    lib.impg_gfa_free.restype = None
+    lib.impg_gfa_free.argtypes = [ctypes.c_void_p]
+
+    lib.impg_concat_tokens_offsets.restype = ctypes.c_int64
+    lib.impg_concat_tokens_offsets.argtypes = [
+        i64p,            # tok_len
+        i64p,            # rows
+        ctypes.c_int64,  # n_rows
+        i64p,            # out_off
+    ]
+    lib.impg_concat_tokens_mt.restype = None
+    lib.impg_concat_tokens_mt.argtypes = [
+        ctypes.c_char_p, i64p, i64p, i64p, ctypes.c_int64, i64p, u8p,
+        ctypes.c_int32,
+    ]
+    lib.impg_topo_priority.restype = None
+    lib.impg_topo_priority.argtypes = [
+        ctypes.c_int32,
+        i32p,            # edge_a
+        i32p,            # edge_b
+        ctypes.c_int64,  # n_edges
+        i32p,            # prio
+        i32p,            # order out
+    ]
+    lib.impg_spell_steps.restype = None
+    lib.impg_spell_steps.argtypes = [
+        ctypes.c_char_p,  # seq blob
+        i64p,             # seg offsets [n_segs+1]
+        i32p,             # step rows
+        u8p,              # step rev
+        ctypes.c_int64,   # n_steps
+        i64p,             # out offsets [n_steps+1]
+        u8p,              # out
+        ctypes.c_int32,   # n_threads
+    ]
 
 
 def _as_array(ptr, n, dtype):
@@ -352,3 +437,195 @@ def radix_argsort_u64(keys: np.ndarray) -> Optional[np.ndarray]:
         order.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
     )
     return order
+
+
+class _NativeHandle:
+    """Owns a native result handle; freed when the last zero-copy view
+    (whose base chain references this object) is garbage-collected."""
+
+    __slots__ = ("_free", "_h")
+
+    def __init__(self, free_fn, h):
+        self._free, self._h = free_fn, h
+
+    def __del__(self):
+        if self._h:
+            self._free(self._h)
+            self._h = None
+
+
+def _view_array(ptr, n, dtype, owner):
+    """Zero-copy numpy view over a native buffer.  The view's base chain
+    (ndarray -> ctypes buffer -> ._owner) keeps `owner` — and therefore
+    the native allocation — alive for the array's whole lifetime."""
+    if n == 0:
+        return np.zeros(0, dtype)
+    addr = ctypes.cast(ptr, ctypes.c_void_p).value
+    nbytes = int(n) * np.dtype(dtype).itemsize
+    buf = (ctypes.c_byte * nbytes).from_address(addr)
+    buf._owner = owner
+    return np.frombuffer(buf, dtype=dtype)
+
+
+def _require(what: str):
+    """The loaded library, or RuntimeError naming `what` needs it."""
+    lib = load()
+    if lib is None:
+        raise RuntimeError(
+            f"{what} needs the port's native host library, which did not "
+            f"build (g++ of impg_tpu_torch/native/ into {_SO_PATH})")
+    return lib
+
+
+def parse_gfa_native(data: bytes) -> dict:
+    """Tokenize a GFA buffer natively into columnar arrays.  Raises
+    ValueError on a bad W walk.
+
+    The parser picks its threads (all cores, >=4 MB of input per chunk);
+    any thread count yields bit-identical output (ordered merge preserving
+    global first-seen name order).  The arrays are zero-copy views over the
+    native buffers (the big step columns are ~100 MB of avoidable
+    page-faulting copies on a 100 MiB graph); each view's base chain owns
+    the native handle, so lifetime is safe even if the dict is dropped."""
+    lib = _require("GFA parsing")
+    h = lib.impg_gfa_parse_mt(data, len(data), 0)
+    owner = _NativeHandle(lib.impg_gfa_free, h)
+    err = lib.impg_gfa_error(h)
+    if err:
+        raise ValueError(err.decode())
+    n_names = int(lib.impg_gfa_n_names(h))
+    n_segs = int(lib.impg_gfa_n_segs(h))
+    n_links = int(lib.impg_gfa_n_links(h))
+    n_paths = int(lib.impg_gfa_n_paths(h))
+    n_steps = int(lib.impg_gfa_n_steps(h))
+    header = lib.impg_gfa_header(h)
+
+    def arr(ptr, n, dtype):
+        return _view_array(ptr, n, dtype, owner)
+
+    return dict(
+        header=header.decode() if header else "",
+        names_blob=ctypes.string_at(
+            lib.impg_gfa_names_buf(h), int(lib.impg_gfa_names_size(h))
+        ),
+        name_offsets=arr(
+            lib.impg_gfa_name_offsets(h), n_names + 1, np.int64
+        ),
+        seg_name_idx=arr(
+            lib.impg_gfa_seg_name_idx(h), n_segs, np.int32
+        ),
+        seq_blob=ctypes.string_at(
+            lib.impg_gfa_seq_buf(h), int(lib.impg_gfa_seq_size(h))
+        ),
+        seq_offsets=arr(
+            lib.impg_gfa_seq_offsets(h), n_segs + 1, np.int64
+        ),
+        link_a=arr(lib.impg_gfa_link_a(h), n_links, np.int32),
+        link_b=arr(lib.impg_gfa_link_b(h), n_links, np.int32),
+        link_a_rev=arr(lib.impg_gfa_link_a_rev(h), n_links, np.int8),
+        link_b_rev=arr(lib.impg_gfa_link_b_rev(h), n_links, np.int8),
+        path_names_blob=ctypes.string_at(
+            lib.impg_gfa_path_names_buf(h),
+            int(lib.impg_gfa_path_names_size(h)),
+        ),
+        path_name_offsets=arr(
+            lib.impg_gfa_path_name_offsets(h), n_paths + 1, np.int64
+        ),
+        path_is_walk=arr(
+            lib.impg_gfa_path_is_walk(h), n_paths, np.int8
+        ),
+        path_off=arr(lib.impg_gfa_path_off(h), n_paths + 1, np.int64),
+        step_name_idx=arr(
+            lib.impg_gfa_step_name_idx(h), n_steps, np.int32
+        ),
+        step_rev=arr(lib.impg_gfa_step_rev(h), n_steps, np.int8),
+    )
+
+
+def concat_tokens(blob: bytes, tok_start, tok_len, rows):
+    """Native token-stream concatenation: (out, out_off)."""
+    lib = _require("the GFA token stream")
+    tok_start = np.ascontiguousarray(tok_start, np.int64)
+    tok_len = np.ascontiguousarray(tok_len, np.int64)
+    rows = np.ascontiguousarray(rows, np.int64)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    out_off = np.empty(rows.size + 1, np.int64)
+    lib.impg_concat_tokens_offsets(
+        tok_len.ctypes.data_as(i64p),
+        rows.ctypes.data_as(i64p),
+        rows.size,
+        out_off.ctypes.data_as(i64p),
+    )
+    out = np.empty(int(out_off[-1]), np.uint8)
+    if rows.size:
+        lib.impg_concat_tokens_mt(
+            blob,
+            tok_start.ctypes.data_as(i64p),
+            tok_len.ctypes.data_as(i64p),
+            rows.ctypes.data_as(i64p),
+            ctypes.c_int64(rows.size),
+            out_off.ctypes.data_as(i64p),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            0,
+        )
+    return out, out_off
+
+
+def topo_priority(n: int, edge_a, edge_b, prio):
+    """Native priority topological sort."""
+    lib = _require("the priority topological sort")
+    edge_a = np.ascontiguousarray(edge_a, np.int32)
+    edge_b = np.ascontiguousarray(edge_b, np.int32)
+    prio = np.ascontiguousarray(prio, np.int32)
+    order = np.empty(n, np.int32)
+    if n:
+        lib.impg_topo_priority(
+            ctypes.c_int32(n),
+            edge_a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            edge_b.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            ctypes.c_int64(edge_a.size),
+            prio.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            order.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        )
+    return order
+
+
+# Grow-only scratch of `spell_steps(reuse=True)`: a fresh large output per
+# call pays its first-touch page faults every time.
+_spell_scratch = np.zeros(0, np.uint8)
+
+
+def spell_steps(blob: bytes, seg_off, step_row, step_rev, out_off,
+                reuse: bool = True):
+    """Native single-pass path spelling.
+
+    With `reuse` (default) the returned array is a view into a grow-only
+    module scratch buffer: it is INVALIDATED by the next call — copy
+    (`.tobytes()`) anything you keep."""
+    global _spell_scratch
+    lib = _require("path spelling")
+    seg_off = np.ascontiguousarray(seg_off, np.int64)
+    step_row = np.ascontiguousarray(step_row, np.int32)
+    step_rev = np.ascontiguousarray(step_rev, np.uint8)
+    out_off = np.ascontiguousarray(out_off, np.int64)
+    total = int(out_off[-1]) if out_off.size else 0
+    if not reuse:
+        out = np.empty(total, np.uint8)
+    else:
+        if _spell_scratch.size < total:
+            _spell_scratch = np.empty(
+                max(total, _spell_scratch.size * 2), np.uint8
+            )
+        out = _spell_scratch[:total]
+    if step_row.size:
+        lib.impg_spell_steps(
+            blob,
+            seg_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            step_row.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            step_rev.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            ctypes.c_int64(step_row.size),
+            out_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            ctypes.c_int32(os.cpu_count() or 1),
+        )
+    return out

@@ -28,7 +28,7 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 SOURCES = ("stab_count.cu", "windows.cu", "project_lanes.cu", "compact.cu",
-           "project_approx.cu", "syncmer.cu", "diploid.cu")
+           "project_approx.cu", "syncmer.cu", "diploid.cu", "path_sgd.cu")
 # Headers the sources include; hashed with them, never compiled alone.
 HEADERS = ("lanes.cuh",)
 NVCC_FLAGS = (
@@ -38,7 +38,8 @@ NVCC_FLAGS = (
 
 # Launch counters, one per kernel (one count per wrapper call that launched).
 KERNELS = ("stab_count", "windows", "project_lanes", "compact",
-           "project_approx", "syncmer_scan", "map_pack", "diploid")
+           "project_approx", "syncmer_scan", "map_pack", "diploid",
+           "path_sgd")
 # An entry point's return when it launched nothing (kNoLaunch in csrc/).
 NO_LAUNCH = -1
 
@@ -69,6 +70,11 @@ _SIGNATURES = {
     ),
     "impg_diploid_scores": (_P, _P, _P, _I64, _P, _P, _P, _P, _P),
     "impg_diploid_topk": (_P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P),
+    "impg_path_sgd_epoch": (
+        _P, _I64, _P, _P, _P, _I64, ctypes.c_float, ctypes.c_double,
+        ctypes.c_uint32, ctypes.c_uint32, _P, _P,
+    ),
+    "impg_path_sgd_apply": (_P, _P, _P, _I64, _P),
 }
 
 _launches = dict.fromkeys(KERNELS, 0)

@@ -7,7 +7,8 @@ index through the port's own index modules (core/, index/).
 
 `haplotype_panel` and `sample_reads` are seeded numpy generators of a
 population-like haplotype panel of one locus and of reads from chosen
-haplotypes, for the syng read-to-genotype path.
+haplotypes, for the syng read-to-genotype path.  `variation_graph` is the
+`sort` path's counterpart: the GFA of such a locus as a variation graph.
 """
 
 from __future__ import annotations
@@ -237,3 +238,122 @@ def write_fastq(path: str, reads: np.ndarray, prefix: str = "r") -> None:
         for i, row in enumerate(reads):
             fh.write(b"@%s%d\n%s\n+\n%s\n" % (prefix.encode(), i,
                                               row.tobytes(), qual))
+
+
+# ---- sort: a variation graph of one locus ----------------------------------
+
+
+def variation_graph(seed: int = 5, n_haps: int = 90,
+                    locus_len: int = 1_000_000, founders: int = 6,
+                    founder_div: float = 0.005, hap_div: float = 0.0005,
+                    indel_share: float = 0.1, max_indel: int = 3) -> str:
+    """GFA text of a locus as a variation graph of `n_haps` haplotypes.
+
+    A random backbone of `locus_len` bases carries variant sites: each
+    founder draws sites at `founder_div` per base, carried by every
+    haplotype h with h % founders == f, and each haplotype draws its own at
+    `hap_div`.  A site is a SNP bubble (a reference and an alternative base
+    segment), or, for an `indel_share` of them, half each, a deletion of
+    1..max_indel backbone bases (a segment the carriers skip) or an
+    insertion of 1..max_indel random bases (a segment only the carriers
+    visit).  Sites closer than one base to the previous site's end are
+    dropped.  The backbone between sites is one segment.  P lines hap0..
+    spell the haplotypes (forward steps); L lines are the distinct
+    adjacencies of the paths.  Segment names are a random permutation of
+    1..N and the S lines come in name order, so the file's order says
+    nothing of the layout.  Vectorized numpy."""
+    rng = np.random.default_rng(seed)
+    base = _BASES[rng.integers(0, 4, locus_len)]
+    # Sites: (position, carrier mask) from the founders, then the haplotypes.
+    pos_parts, carrier_parts = [], []
+    hap_ids = np.arange(n_haps)
+    for f in range(founders):
+        p = rng.integers(1, locus_len - max_indel - 1,
+                         rng.binomial(locus_len, founder_div))
+        pos_parts.append(p)
+        carrier_parts.append(np.broadcast_to(hap_ids % founders == f,
+                                             (p.size, n_haps)))
+    for h in range(n_haps):
+        p = rng.integers(1, locus_len - max_indel - 1,
+                         rng.binomial(locus_len, hap_div))
+        pos_parts.append(p)
+        carrier_parts.append(np.broadcast_to(hap_ids == h, (p.size, n_haps)))
+    pos = np.concatenate(pos_parts)
+    carriers = np.concatenate(carrier_parts)
+    pos, first = np.unique(pos, return_index=True)
+    carriers = carriers[first]
+    kind_draw = rng.random(pos.size)
+    # 0 SNP, 1 deletion, 2 insertion
+    kind = np.where(kind_draw < indel_share / 2, 1,
+                    np.where(kind_draw < indel_share, 2, 0))
+    length = np.where(kind == 0, 1, rng.integers(1, max_indel + 1, pos.size))
+    # Backbone bases a site consumes (the insertion consumes none).
+    extent = np.where(kind == 2, 0, length)
+    keep = np.ones(pos.size, bool)
+    end = 0
+    # A site must start past the previous kept site's end (one pass).
+    for k, (p, e) in enumerate(zip(pos.tolist(), extent.tolist())):
+        if p <= end:
+            keep[k] = False
+        else:
+            end = p + e
+    pos, kind, length, extent, carriers = (
+        pos[keep], kind[keep], length[keep], extent[keep], carriers[keep])
+    n_sites = pos.size
+
+    # Segments in layout order: backbone chunk k (from the previous site's
+    # end to pos k), then site k's segment(s); a last backbone chunk.
+    # Site segments: SNP -> ref (1 bp), alt (1 bp); deletion -> the deleted
+    # bases; insertion -> the inserted bases.
+    n_site_segs = np.where(kind == 0, 2, 1)
+    seg_per_site = 1 + n_site_segs
+    site_first = np.concatenate([[0], np.cumsum(seg_per_site)])[:-1]
+    n_segs = int(seg_per_site.sum()) + 1
+    chunk_start = np.concatenate([[0], pos[:-1] + extent[:-1]])
+    seqs: list[bytes] = [b""] * n_segs
+    base_b = base.tobytes()
+    alt_base = _BASES[(np.searchsorted(_BASES, base[pos])
+                       + rng.integers(1, 4, n_sites)) % 4].tobytes()
+    ins_seq = _BASES[rng.integers(0, 4, int(length.sum()))].tobytes()
+    ins_off = np.concatenate([[0], np.cumsum(length)])
+    for k, (s0, p, kd, ln, sf) in enumerate(zip(
+            chunk_start.tolist(), pos.tolist(), kind.tolist(),
+            length.tolist(), site_first.tolist())):
+        seqs[sf] = base_b[s0:p]
+        if kd == 0:
+            seqs[sf + 1] = base_b[p:p + 1]
+            seqs[sf + 2] = alt_base[k:k + 1]
+        elif kd == 1:
+            seqs[sf + 1] = base_b[p:p + ln]
+        else:
+            seqs[sf + 1] = ins_seq[int(ins_off[k]):int(ins_off[k]) + ln]
+    last_start = int(pos[-1] + extent[-1]) if n_sites else 0
+    seqs[n_segs - 1] = base_b[last_start:]
+
+    # Per site, the segment a non-carrier and a carrier visit after the
+    # backbone chunk (-1: none).
+    ref_seg = np.where(kind == 2, -1, site_first + 1)
+    alt_seg = np.where(kind == 0, site_first + 2,
+                       np.where(kind == 2, site_first + 1, -1))
+    names = rng.permutation(n_segs) + 1
+    tok = [f"{names[i]}+," for i in range(n_segs)]
+    lines = ["H\tVN:Z:1.0"]
+    by_name = np.argsort(names)
+    lines += [f"S\t{names[i]}\t{seqs[i].decode()}" for i in by_name.tolist()]
+    pairs = []
+    paths = []
+    for h in range(n_haps):
+        steps = np.empty((n_sites, 2), np.int64)
+        steps[:, 0] = site_first
+        steps[:, 1] = np.where(carriers[:, h], alt_seg, ref_seg)
+        walk = steps.reshape(-1)
+        walk = np.append(walk[walk >= 0], n_segs - 1)
+        pairs.append(walk[:-1] * n_segs + walk[1:])
+        body = "".join([tok[i] for i in walk.tolist()])
+        paths.append(f"P\thap{h}\t{body[:-1]}\t*")
+    links = np.unique(np.concatenate(pairs))
+    la, lb = names[links // n_segs], names[links % n_segs]
+    lines += [f"L\t{a}\t+\t{b}\t+\t0M"
+              for a, b in zip(la.tolist(), lb.tolist())]
+    lines += paths
+    return "\n".join(lines) + "\n"

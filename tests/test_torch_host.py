@@ -147,10 +147,12 @@ def test_native_library_is_the_ports_own():
         os.path.join("impg_tpu_torch", "build", "libimpg_torch_native.so"))
     for sym in ("impg_paf_parse_mt", "vb_create", "vb_process32",
                 "he_create", "he_run", "sx_extract", "sx_extract_batch",
-                "sx_radix_argsort_u64"):
+                "sx_radix_argsort_u64", "impg_gfa_parse_mt",
+                "impg_spell_steps", "impg_concat_tokens_mt",
+                "impg_topo_priority"):
         assert hasattr(lib, sym), sym
-    # Only the query and syng paths' sources are built in.
-    for sym in ("uf_create", "impg_gfa_parse", "impg_gbwt_build"):
+    # Only the query, syng and sort paths' sources are built in.
+    for sym in ("uf_create", "impg_gbwt_build"):
         assert not hasattr(lib, sym), sym
 
 

@@ -48,7 +48,7 @@ def test_launch_counts_a_launch(fake_library):
     assert lib.calls == 3
     assert kernels.launch_counts() == dict(
         stab_count=0, windows=2, project_lanes=0, compact=1, project_approx=0,
-        syncmer_scan=0, map_pack=0, diploid=0,
+        syncmer_scan=0, map_pack=0, diploid=0, path_sgd=0,
     )
 
 
@@ -84,10 +84,11 @@ def test_project_approx_counts_on_its_own(fake_library):
 @pytest.mark.parametrize("name,entry", [
     ("syncmer_scan", "impg_syncmer_scan"), ("map_pack", "impg_map_pack"),
     ("diploid", "impg_diploid_topk"), ("diploid", "impg_diploid_scores"),
+    ("path_sgd", "impg_path_sgd_epoch"), ("path_sgd", "impg_path_sgd_apply"),
 ])
 def test_syng_kernels_count_on_their_own(fake_library, name, entry):
-    """K-F, K-G and K-H each have a counter that only their launches move,
-    and an empty call moves none."""
+    """K-F, K-G, K-H and K-I each have a counter that only their launches
+    move, and an empty call moves none."""
     fake_library(0)
     assert kernels.launch(name, entry, 1)
     counts = kernels.launch_counts()
@@ -165,3 +166,69 @@ def test_entry_points_report_empty_input_as_no_launch(source):
     early = re.findall(r"if \([^;]*\) return static_cast<int>\("
                        r"cudaGetLastError\(\)\);", src)
     assert not early, early
+
+
+# Random123's published known-answer vectors of Philox4x32-10 (kat_vectors):
+# counter words, key words, output words.
+PHILOX_KAT = [
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
+
+
+@pytest.mark.parametrize("ctr,key,want", PHILOX_KAT)
+def test_philox_twin_known_answers(ctr, key, want):
+    """K-I's plain twin of Philox4x32-10 (int64 arithmetic, 16-bit split
+    multiplies) gives Random123's published outputs, alone and inside a
+    batch of other counters."""
+    import torch
+
+    from impg_tpu_torch.ops import path_sgd
+
+    cols = [torch.tensor([c, 1, c ^ 0xFFFF], dtype=torch.int64) for c in ctr]
+    got = path_sgd.philox4x32(*cols, *key)
+    assert [int(w[0]) for w in got] == list(want)
+    assert all(0 <= int(w.min()) and int(w.max()) < 2**32 for w in got)
+
+
+def test_draw_mapping():
+    """Philox words -> (i, j): i = (u0 n) >> 32; the offset ceil(exp(t log
+    n)) with t from u1 and u3 in float64; the sign from u2's top bit; j
+    clipped to i's path."""
+    import math
+
+    import torch
+
+    from impg_tpu_torch.ops import path_sgd
+
+    n = 100
+    pstart = torch.tensor([0] * 40 + [40] * 60, dtype=torch.int64)
+    pend = torch.tensor([40] * 40 + [100] * 60, dtype=torch.int64)
+
+    def words(*w):
+        return [torch.tensor([x], dtype=torch.int64) for x in w]
+
+    def pair(u0, u1, u2, u3):
+        i, j = path_sgd.pairs_from_words(*words(u0, u1, u2, u3), pstart,
+                                         pend, math.log(n))
+        return int(i[0]), int(j[0])
+
+    assert pair(0, 0, 0, 0) == (0, 0)                 # t = 0: off 1, clipped
+    assert pair(0, 0, 2**31, 0) == (0, 1)             # + side
+    assert pair(2**31, 0, 0, 0) == (50, 49)           # i = n / 2, - side
+    assert pair(2**32 - 1, 0, 2**31, 0) == (99, 99)   # clipped to path end
+    # t = 1/4: off = ceil(exp(log(100) / 4)) = ceil(3.16...) = 4
+    assert pair(2**31, 2**30, 2**31, 0) == (50, 54)
+    # t = 3/4: off = ceil(31.6...) = 32, clipped to the path's start
+    assert pair(2**31, 3 * 2**30, 0, 0) == (50, 40)
+    # The largest t: off = n, clipped either way.
+    assert pair(2**31, 2**32 - 1, 2**31, 2**32 - 1) == (50, 99)
+    i, j = path_sgd.draw_pairs(pstart, pend, epoch=3, first=0, count=4096,
+                               log_n=math.log(n))
+    assert ((pstart[i] <= j) & (j < pend[i])).all()
+    assert (j != i).float().mean() > 0.9
+    assert abs(float((j > i).float().mean()) - 0.5) < 0.05

@@ -5,7 +5,8 @@ attempt recorded, imports the port and runs one small CPU query through the
 engines (exact, approximate, paged) and through the CLI (`index`, `query -x`
 bed/bedpe/paf, `--approximate`, paged, `stats -r/-b`), then the syng path
 `syng` -> `map` -> `genotype cos` on the device (CPU twins) and host
-engines."""
+engines, and `sort` of a variation graph with the numpy and device (K-I's
+twin) path-SGD backends."""
 
 import os
 import random
@@ -104,6 +105,15 @@ for spec in ("device", "host"):
         rc = impg_tpu_torch.cli.main(argv + ["--compute-engine", spec],
                                      device="cpu")
         assert rc == 0, argv
+import impg_tpu_torch.graph.sortgfa
+import impg_tpu_torch.ops.path_sgd
+for backend in ("numpy", "device"):
+    out = "sorted_%s.gfa" % backend
+    rc = impg_tpu_torch.cli.main(["sort", sys.argv[5], "--sgd-backend",
+                                  backend, "--output", out], device="cpu")
+    assert rc == 0, backend
+    with open(out) as fh:
+        assert fh.read().count("\nP\t") == 4, backend
 loaded = [m for m, mod in sys.modules.items() if blocked(m) and mod is not None]
 assert not loaded, loaded
 assert not tried, tried
@@ -122,10 +132,12 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     synth.write_fasta(str(fasta), panel)
     synth.write_fastq(str(reads), synth.sample_reads(
         1, [panel[1][1], panel[4][1]], 600))
+    gfa = tmp_path / "locus.gfa"
+    gfa.write_text(synth.variation_graph(seed=2, n_haps=4, locus_len=5000))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run(
         [sys.executable, "-c", _SCRIPT, REPO, str(paf), str(fasta),
-         str(reads)],
+         str(reads), str(gfa)],
         capture_output=True, text=True, cwd=str(tmp_path), env=env,
         timeout=300,
     )
