@@ -34,9 +34,11 @@ just after, and fails unless every kernel of that path launched:
              through TorchPagedEngine under a budget of a third of the lean
              index bytes (>= 8 pages, LRU evictions); rows equal to the
              native engine's, depths to the index's stab
-  3. kernels K-F syncmer_scan at one 1 Mb haplotype ([1, 1000000]) and at
-             one read batch ([256, 150]), K-G map_pack at that batch against
-             the panel's universe, K-H diploid at bench.py's genotype_e2e
+  3. kernels K-F syncmer_scan on one 1 Mb haplotype, on the 90-haplotype
+             panel in one piece and on a 1 Mb sequence of homopolymers,
+             tandem repeats and N runs, K-G map_pack on 256 reads and on a
+             65,536-read batch against the panel's universe (flat rows, a
+             255 after each sequence), K-H diploid at bench.py's genotype_e2e
              shape (4096 x 131,072 uint8, top_n 10) and at that shape with
              each candidate row twice (exact score ties) beside torch.topk,
              then on tests/test_torch_genotype.py's small cases and on kk
@@ -45,9 +47,11 @@ just after, and fails unless every kernel of that path launched:
              host float64 run_diploid_topk on their own line
   4. genotype a 90-haplotype panel of a 1 Mb locus (impg_tpu_torch/synth.py)
              and two samples of 200,000 150 bp reads: `syng` through K-F
-             (index equal to the native build's), `map` through K-G (packs
-             equal to host map_reads), `genotype cos` of the cohort through
-             the Gram and K-H (ranks equal to the host's, truth pair first)
+             (index equal to the native build's, one piece: a scan and a
+             write launch), `map` through
+             K-G (packs equal to host map_reads, one launch a 65,536-read
+             batch: 8), `genotype cos` of the cohort through the Gram and
+             K-H (ranks equal to the host's, truth pair first)
      genotype profile  one more warm map and genotype under cProfile and
              torch.profiler
   3. kernels K-I path_sgd: one epoch of the sort graph's layout through the
@@ -115,8 +119,10 @@ N_SEEDS = 256
 PAGED_SHARE = 3
 DEVICE = torch.device("cuda", 0)
 # The card's peaks for the bound (H100 SXM datasheet, at 700 W): HBM bytes
-# per second, and 32-bit scalar operations per second (the
-# float32 rate outside the tensor cores, taken for the integer ops here).
+# per second, and 32-bit scalar operations per second.  The datasheet gives
+# no 32-bit integer rate; its float32 rate outside the tensor cores (an FMA
+# counted as two operations) stands for it.  Hopper issues integer
+# operations at no more than that rate, so a bound by operations errs low.
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 # Integer ops per (record, query) pair of K-A: three compares and an add.
@@ -128,6 +134,10 @@ STAB_OPS_PER_PAIR = 4
 N_HAPS = 90
 LOCUS_LEN = 1_000_000
 N_READS = 200_000
+# map_reads_batched's default batch: each sample's N_READS reads are
+# ceil(N_READS / READS_PER_BATCH) K-G launches (150 bp reads never reach its
+# 16 MiB cap).
+READS_PER_BATCH = 65_536
 READ_LEN = 150
 GT_SAMPLES = {"het": ("hap3", "hap40"), "hom": ("hap25", "hap25")}
 # The [4 sort] graph: the same locus size and panel as [4 genotype], as a
@@ -237,10 +247,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_turns(fns: dict, reps: int = 5, rounds: int = 4) -> dict:
+def time_turns(fns: dict, reps: int = 5, rounds: int = 4,
+               reps_of: dict | None = None) -> dict:
     """Warm each function, then `rounds` rounds in turns, the order reversed
-    every other round (plain, kernel, kernel, plain, ...); median ms per
-    call of each."""
+    every other round (plain, kernel, kernel, plain, ...), `reps` calls a
+    turn (`reps_of[name]` where given); median ms per call of each."""
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
@@ -248,13 +259,16 @@ def time_turns(fns: dict, reps: int = 5, rounds: int = 4) -> dict:
     order = list(fns)
     for r in range(rounds):
         for k in (order if r % 2 == 0 else order[::-1]):
-            acc[k].append(cuda_ms(fns[k], reps))
+            acc[k].append(cuda_ms(fns[k], (reps_of or {}).get(k, reps)))
     return {k: float(np.median(v)) for k, v in acc.items()}
 
 
-def time_pair(kernel_fn, plain_fn, reps: int = 5, rounds: int = 3):
-    """(kernel ms, plain ms) from `time_turns`."""
-    t = time_turns(dict(plain=plain_fn, kernel=kernel_fn), reps, rounds)
+def time_pair(kernel_fn, plain_fn, reps: int = 5, rounds: int = 3,
+              plain_reps: int | None = None):
+    """(kernel ms, plain ms) from `time_turns`; `plain_reps` calls a turn of
+    a slow plain twin where given."""
+    t = time_turns(dict(plain=plain_fn, kernel=kernel_fn), reps, rounds,
+                   None if plain_reps is None else dict(plain=plain_reps))
     return t["kernel"], t["plain"]
 
 
@@ -298,6 +312,8 @@ def print_kernel_rows(rows: dict) -> None:
     for name, r in rows.items():
         lib = r.get("library_ms")
         extra = f" device_ms={r['device_ms']:.4f}" if "device_ms" in r else ""
+        if "device_split_ms" in r:
+            extra += f" device_split_ms={json.dumps(r['device_split_ms'])}"
         print(f"[3 kernels] {name} {r['shape']}: tolerance=0 (integers) "
               f"max_abs_err={r['max_abs_err']}"
               f" kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f}"
@@ -821,12 +837,13 @@ def phase_paged(index, targets, front, native, kernels, D, host):
 
 # ---- the syng read-to-genotype path (K-F, K-G, K-H) ------------------------
 
-# Operations per window start of the closed-syncmer scan that the function
-# itself needs (not this kernel's): rolling k-mer pack and reverse
+# Operations of the closed-syncmer scan that the function itself needs (not
+# a kernel's): per window start, the rolling k-mer pack and reverse
 # complement (4), canonical min (1) and mix32 (8) of the new k-mer, an
-# amortized sliding minimum (3), the end test (3), the id's four mix32 and
-# its compare/select (38).
-SCAN_OPS_PER_WINDOW = 57
+# amortized sliding minimum (3) and the end test (3); per selected window,
+# the id's four mix32 and its compare/select (38).
+SCAN_OPS_PER_WINDOW = 19
+ID_OPS_PER_SELECTED = 38
 # Per scored pair of K-H (upper triangle): two adds, a multiply, a sqrt, a
 # multiply, a compare and a divide for the score, one for the key.
 DIPLOID_OPS_PER_PAIR = 8
@@ -839,42 +856,98 @@ DIPLOID_SMALL_CASES = ((7, 40, 20), (8, 30, 64), (5, 10, 25), (33, 300, 74),
                        (1, 9, 1), (160, 64, 10_000), (128, 64, 128 * 128))
 
 
-def scan_bytes_ops(codes, k: int, w: int, n_selected: int = 0,
-                   probes: int = 0, hits: int = 0) -> dict:
-    """Bound of K-F (no universe) or K-G: the codes read once; K-F's four
-    outputs (10 bytes a window); K-G's probes of the universe (8 bytes each)
-    and one 8-byte count read and written per hit."""
-    b, length = codes.shape
-    m = max(0, length - k - w + 1)
-    if probes:
-        n_bytes = b * length + probes * 8 + hits * 16 + 8
+def scan_bytes_ops(seqs: list, k: int, w: int, n_selected: int = 0,
+                   n_universe: int = 0, hits: int = 0) -> dict:
+    """Bound of the function K-F (no universe) or K-G computes on `seqs`,
+    not of either kernel's own work: the flat row's codes (a separator
+    each) read once; K-F's 17 bytes a selected occurrence (pos 8, id 8, fwd
+    1); K-G's universe read once and an 8-byte count read and written per
+    hit; SCAN_OPS_PER_WINDOW operations for each of the sequences' window
+    starts and ID_OPS_PER_SELECTED for each of the `n_selected` selected
+    windows."""
+    n_codes = sum(len(q) + 1 for q in seqs)
+    windows = sum(max(0, len(q) - k - w + 1) for q in seqs)
+    if n_universe:
+        n_bytes = n_codes + n_universe * 8 + hits * 16 + 8
     else:
-        n_bytes = b * length + b * m * 10
-    return bound(n_bytes, b * m * SCAN_OPS_PER_WINDOW + probes * 3)
+        n_bytes = n_codes + n_selected * 17
+    return bound(n_bytes, windows * SCAN_OPS_PER_WINDOW
+                 + n_selected * ID_OPS_PER_SELECTED)
 
 
-def check_scan(SD, codes, k: int, w: int, seed: int) -> dict:
-    got = SD.syncmer_scan(codes, k, w, seed)
-    ref = SD.syncmer_scan_plain(codes, k, w, seed)
-    err = max(max_abs_err(a, b) for a, b in zip(got, ref))
-    ms, pms = time_pair(lambda: SD.syncmer_scan(codes, k, w, seed),
-                        lambda: SD.syncmer_scan_plain(codes, k, w, seed))
+def repeats_sequence(seed: int, length: int) -> bytes:
+    """A random sequence of `length` with 60 stretches of 1-20 kb where the
+    scan selects at high rates or never: homopolymers of each base (every
+    window selects), tandem repeats of periods 2 to 171, and N runs."""
+    rng = np.random.default_rng(seed)
+    s = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, length)].copy()
+    for i in range(60):
+        n = int(rng.integers(1000, 20_000))
+        at = int(rng.integers(0, length - n))
+        if i % 3 == 0:
+            s[at:at + n] = b"ACGT"[(i // 3) % 4]
+        elif i % 3 == 1:
+            period = (2, 3, 7, 30, 171)[(i // 3) % 5]
+            unit = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, period)]
+            s[at:at + n] = np.resize(unit, n)
+        else:
+            s[at:at + n] = ord("N")
+    return s.tobytes()
+
+
+def check_scan(SD, seqs: list, k: int, w: int, seed: int,
+               plain_reps: int = 5) -> dict:
+    """K-F over `seqs` laid out flat against its twin (every field, exact),
+    timed in turns (`plain_reps` calls a turn of the twin); device ms: its
+    scan and write launches alone (into an output of the known size,
+    without the read of the total), and each entry point's alone (the scan
+    with its tile scan, the write)."""
+    starts = np.zeros(len(seqs) + 1, np.int64)
+    np.cumsum([len(q) + 1 for q in seqs], out=starts[1:])
+    codes = torch.from_numpy(SD.encode_batch(seqs)).to(DEVICE)
+    starts = torch.from_numpy(starts).to(DEVICE)
+    got = SD.extract_syncmers_batch(codes, starts, k, w, seed)
+    ref = SD.extract_syncmers_batch_plain(codes, starts, k, w, seed)
+    err = max(max_abs_err(getattr(got, f), getattr(ref, f))
+              for f in ("pos", "ids", "fwd", "first"))
+    ms, pms = time_pair(
+        lambda: SD.extract_syncmers_batch(codes, starts, k, w, seed),
+        lambda: SD.extract_syncmers_batch_plain(codes, starts, k, w, seed),
+        plain_reps=plain_reps)
+    out = SD.Syncmers.empty(got.n, got.n_seqs, DEVICE)
+    scanned = SD.syncmer_scan_launch(codes, k, w, seed)
+
+    def scan():
+        return SD.syncmer_scan_launch(codes, k, w, seed)
+
+    def write(masks, offsets):
+        SD.syncmer_write_launch(codes, starts, k, w, seed, masks, offsets,
+                                out)
+
     return dict(
         max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
-        device_ms=device_ms(lambda: SD.syncmer_scan(codes, k, w, seed)),
-        **scan_bytes_ops(codes, k, w),
-        shape=f"{codes.shape[0]}x{codes.shape[1]}",
-        selected=int(got[0].sum()),
+        device_ms=device_ms(lambda: write(*scan())),
+        device_split_ms=dict(scan=device_ms(scan),
+                             write=device_ms(lambda: write(*scanned))),
+        **scan_bytes_ops(seqs, k, w, n_selected=got.n),
+        shape=f"{len(seqs)} x ~{len(seqs[0])} bp, {got.n} selected",
+        selected=got.n,
     )
 
 
-def check_map_pack(SD, codes, universe, k: int, w: int, seed: int) -> dict:
-    u = universe.shape[0]
+def check_map_pack(SD, reads: list, universe, k: int, w: int,
+                   seed: int) -> dict:
+    """K-G over the reads laid out flat against its twin (counts and
+    n_matched, exact), timed in turns; device ms: the launch alone."""
+    codes = torch.from_numpy(SD.encode_batch(reads)).to(DEVICE)
+    uni = torch.from_numpy(universe.view(np.int64)).to(DEVICE)
+    directory = torch.from_numpy(SD.bucket_directory(universe)).to(DEVICE)
+    u = universe.size
 
     def run(fn):
-        counts = torch.zeros(u, dtype=torch.int64, device=codes.device)
-        matched = torch.zeros(1, dtype=torch.int64, device=codes.device)
-        fn(codes, universe, counts, matched, k, w, seed)
+        counts = torch.zeros(u, dtype=torch.int64, device=DEVICE)
+        matched = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+        fn(codes, uni, directory, counts, matched, k, w, seed)
         return counts, matched
 
     got = run(SD.map_pack)
@@ -882,36 +955,40 @@ def check_map_pack(SD, codes, universe, k: int, w: int, seed: int) -> dict:
     err = max(max_abs_err(a, b) for a, b in zip(got, ref))
     ms, pms = time_pair(lambda: run(SD.map_pack),
                         lambda: run(SD.map_pack_plain))
-    n_sel = int(SD.syncmer_scan(codes, k, w, seed)[0].sum())
-    iters = max(1, int(np.ceil(np.log2(u + 1))))
+    hits = int(ref[1].item())
+    # The flat row scanned as one padded row selects what K-G selects.
+    selected = int(SD.syncmer_scan_plain(codes[None], k, w, seed)[0].sum())
     return dict(
         max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
         device_ms=device_ms(lambda: SD.map_pack(
-            codes, universe, got[0], got[1], k, w, seed)),
-        **scan_bytes_ops(codes, k, w, n_sel, n_sel * iters,
-                         int(ref[1].item())),
-        shape=f"{codes.shape[0]}x{codes.shape[1]} vs {u} ids",
-        matched=int(ref[1].item()),
+            codes, uni, directory, got[0], got[1], k, w, seed)),
+        **scan_bytes_ops(reads, k, w, n_selected=selected, n_universe=u,
+                         hits=hits),
+        shape=f"{len(reads)} reads x {len(reads[0])} bp vs {u} ids, "
+              f"{selected} selected",
+        matched=hits,
     )
 
 
-def phase_syncmer_kernels(SD, hap: bytes, reads: np.ndarray, universe,
+def phase_syncmer_kernels(SD, panel: list, reads: np.ndarray, universe,
                           k: int, w: int, seed: int) -> dict:
-    """K-F at one 1 Mb haplotype and one read batch, K-G at that batch
-    against the panel's universe, each against its twin (exact)."""
-    enc = SD.sync_np.encode_bases
-    # One haplotype as one row of 1,000,000 codes (255-padded: inert).
-    row = np.full((1, 1_000_000), 255, np.uint8)
-    codes = enc(hap[:1_000_000])
-    row[0, :codes.size] = codes
-    hap_codes = torch.from_numpy(row).to(DEVICE)
-    batch = torch.from_numpy(SD.encode_batch(
-        [r.tobytes() for r in reads[:256]])).to(DEVICE)
-    d_uni = torch.from_numpy(universe.view(np.int64)).to(DEVICE)
+    """K-F on one 1 Mb haplotype, on the whole 90-haplotype panel in one
+    launch (the `syng` path's shape) and on a 1 Mb sequence of repeats and
+    N runs; K-G on 256 reads and on one 65,536-read batch of the first
+    sample (the `map` path's shape) against the panel's universe; each
+    against its twin (exact)."""
+    seqs = [seq for _, seq in panel]
     rows = {
-        "syncmer_scan/haplotype": check_scan(SD, hap_codes, k, w, seed),
-        "syncmer_scan/reads": check_scan(SD, batch, k, w, seed),
-        "map_pack/reads": check_map_pack(SD, batch, d_uni, k, w, seed),
+        "syncmer_scan/haplotype": check_scan(SD, seqs[:1], k, w, seed),
+        "syncmer_scan/panel": check_scan(SD, seqs, k, w, seed,
+                                         plain_reps=1),
+        "syncmer_scan/repeats": check_scan(SD, [repeats_sequence(13, LOCUS_LEN)],
+                                           k, w, seed),
+        "map_pack/reads": check_map_pack(
+            SD, [r.tobytes() for r in reads[:256]], universe, k, w, seed),
+        "map_pack/batch": check_map_pack(
+            SD, [r.tobytes() for r in reads[:READS_PER_BATCH]], universe, k,
+            w, seed),
     }
     print_kernel_rows(rows)
     return rows
@@ -1092,7 +1169,9 @@ def phase_genotype(fasta, panel, samples, native, native_s, kernels,
     both samples through K-G (packs and n_matched equal to host map_reads),
     `genotype cos` of the cohort through the cuBLAS Gram and K-H (genotype
     column and rank equal to the host's, dot equal, similarity within 1e-6;
-    the host ranks each sample's truth pair first).  `native` is the native
+    the host ranks each sample's truth pair first); K-F's two launches (its
+    scan and write entry points) for the build's one piece and one K-G
+    launch a read batch.  `native` is the native
     extractor's index of the same FASTA.  Returns the counts and the device
     index."""
     hap0_len = len(panel[0][1])
@@ -1120,6 +1199,11 @@ def phase_genotype(fasta, panel, samples, native, native_s, kernels,
     launches = kernels.launch_counts()
     check_launches("genotype", launches,
                    ("syncmer_scan", "map_pack", "diploid"))
+    # K-F's scan and write for the whole build, one K-G launch a read batch.
+    want = {"syncmer_scan": 2,
+            "map_pack": len(samples) * -(-N_READS // READS_PER_BATCH)}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"genotype: launches {launches}, want {want}")
 
     map_host_s = 0.0
     for (name, pk, nr, nm), (fq, _, _) in zip(packs, samples.values()):
@@ -1731,7 +1815,7 @@ def main() -> int:
         native_syng = SyngIndex.build_from_fasta([fasta])
         native_s = time.perf_counter() - t0
         rows.update(phase_syncmer_kernels(
-            SD, panel[0][1], samples["het"][2],
+            SD, panel, samples["het"][2],
             pack_mod.universe_from_index(native_syng), native_syng.k,
             native_syng.w, native_syng.seed))
         rows.update(phase_diploid_kernels(gt_core, OD))
@@ -1776,10 +1860,10 @@ def main() -> int:
         ("project_approx", "project_approx/lean",
          "impg_tpu_torch/csrc/project_approx.cu",
          "impg_tpu/query/device.py:393"),
-        ("syncmer_scan", "syncmer_scan/haplotype",
+        ("syncmer_scan", "syncmer_scan/panel",
          "impg_tpu_torch/csrc/syncmer.cu",
          "impg_tpu/ops/syncmer_jax.py:81"),
-        ("map_pack", "map_pack/reads", "impg_tpu_torch/csrc/syncmer.cu",
+        ("map_pack", "map_pack/batch", "impg_tpu_torch/csrc/syncmer.cu",
          "impg_tpu/ops/syncmer_jax.py:138"),
         ("diploid", "diploid/topk", "impg_tpu_torch/csrc/diploid.cu",
          "impg_tpu/genotype/core.py:300"),

@@ -63,10 +63,14 @@ _SIGNATURES = {
     ),
     "impg_compact": (_P, _I64, _P, _I32, _P, _P, _P),
     "impg_syncmer_scan": (
-        _P, _I32, _I64, _I32, _I32, ctypes.c_uint32, _P, _P, _P, _P, _P,
+        _P, _I64, _I32, _I32, ctypes.c_uint32, _P, _P, _P, _P,
+    ),
+    "impg_syncmer_write": (
+        _P, _I64, _I32, _I32, ctypes.c_uint32, _P, _P, _P, _I64, _P, _P, _P,
+        _P, _P,
     ),
     "impg_map_pack": (
-        _P, _I32, _I64, _I32, _I32, ctypes.c_uint32, _P, _I64, _P, _P, _P,
+        _P, _I64, _I32, _I32, ctypes.c_uint32, _P, _I64, _P, _P, _P, _P,
     ),
     "impg_diploid_scores": (_P, _P, _P, _I64, _P, _P, _P, _P, _P),
     "impg_diploid_topk": (_P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P, _I64,

@@ -120,21 +120,31 @@ class SyngIndex:
     ) -> "SyngIndex":
         """Index `sequences`.  extractor: "native" (one threaded C++ batch
         call), "numpy" (per sequence, native when loaded) or "device" (K-F
-        on the torch `device`, default cuda:0); all three give the same
-        arrays."""
+        on the torch `device`, default cuda:0, over all sequences at once);
+        all three give the same arrays."""
         seq_index = SequenceIndex()
-        # Fastest path: one native batch call, parallel ACROSS sequences
-        # (sx_extract_batch; two thread spawns per ~100 kb sequence cost
-        # more than the scan itself) — the reference's 4-thread build
-        # headline conditions (README.md:315).  extractor="device" runs
-        # the bit-exact K-F scan instead (ops/syncmer_device.syncmer_scan);
-        # all three extractors produce interchangeable indexes.
+        # Fastest host path: one native batch call, parallel ACROSS
+        # sequences (sx_extract_batch; two thread spawns per ~100 kb
+        # sequence cost more than the scan itself) — the reference's
+        # 4-thread build headline conditions (README.md:315).
+        # extractor="device" returns the same batch from the bit-exact K-F
+        # kernel (ops/syncmer_device.extract_syncmers_batch_device: one
+        # launch and one copy back per 256 MiB of codes); all three
+        # extractors produce interchangeable indexes.
         batch = None
         if extractor == "native":
             from impg_tpu_torch.io import native as native_mod
 
             batch = native_mod.extract_syncmers_batch_native(
                 [seq for _, seq in sequences], k, w, seed, threads=threads
+            )
+        elif extractor == "device":
+            from impg_tpu_torch.ops.syncmer_device import (
+                extract_syncmers_batch_device,
+            )
+
+            batch = extract_syncmers_batch_device(
+                [seq for _, seq in sequences], k, w, seed, device=device
             )
         if batch is not None:
             occ_pos, occ_ids, occ_fwd, counts = batch
@@ -148,22 +158,11 @@ class SyngIndex:
             occ_seq = np.repeat(sids, counts)
         else:
             ids_parts, seq_parts, pos_parts, fwd_parts = [], [], [], []
-            if extractor == "device":
-                from impg_tpu_torch.ops.syncmer_device import (
-                    extract_syncmers_device,
-                )
-
-                def extract(seq):
-                    return extract_syncmers_device(seq, k, w, seed,
-                                                   device=device)
-            else:
-                def extract(seq):
-                    return syncmer_mod.extract_syncmers(
-                        seq, k, w, seed, threads=threads
-                    )
             for name, seq in sequences:
                 sid = seq_index.get_or_insert_id(name, len(seq))
-                positions, ids, fwd = extract(seq)
+                positions, ids, fwd = syncmer_mod.extract_syncmers(
+                    seq, k, w, seed, threads=threads
+                )
                 ids_parts.append(ids)
                 seq_parts.append(np.full(ids.size, sid, np.int32))
                 pos_parts.append(positions)

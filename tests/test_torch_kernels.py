@@ -52,6 +52,17 @@ def test_launch_counts_a_launch(fake_library):
     )
 
 
+def test_each_entry_point_counts(fake_library):
+    """K-F's scan and write entry points each add one to `syncmer_scan`."""
+    lib = fake_library(0)
+    assert kernels.launch("syncmer_scan", "impg_syncmer_scan", 1)
+    assert kernels.launch("syncmer_scan", "impg_syncmer_write", 1)
+    assert lib.calls == 2
+    counts = kernels.launch_counts()
+    assert counts.pop("syncmer_scan") == 2
+    assert counts == dict.fromkeys(counts, 0)
+
+
 def test_empty_call_leaves_count_unchanged(fake_library):
     lib = fake_library(kernels.NO_LAUNCH)
     for name, entry in (("stab_count", "impg_stab_count"),

@@ -1,13 +1,18 @@
 """The port's syncmer path against impg_tpu's, on the CPU.
 
 On the same numpy-seeded inputs: the port's ops/syncmer.py and native
-bindings give impg_tpu's positions, ids and orientations; the plain twins of
-K-F (`syncmer_scan`) and K-G (`map_pack`) give JAX's `syncmer_scan` and
-`map_pack_step` exactly (N bases, padded rows, k in {5, 8}, an empty
-universe), and at k = 12, which JAX's reverse-complement table cannot reach,
-the numpy oracle's; the SyngIndex arrays of all three extractors, the packs
-of `map_reads` and `map_reads_batched`, and the `syng`/`map` CLI bytes equal
-impg_tpu's."""
+bindings give impg_tpu's positions, ids and orientations; the dense scan
+`syncmer_scan_plain` gives JAX's `syncmer_scan` exactly (N bases, padded
+rows, k in {5, 8}), and at k = 12, which JAX's reverse-complement table
+cannot reach, the numpy oracle's; the plain twins of K-F
+(`extract_syncmers_batch_plain`, over one flat row of 255-separated
+sequences) and K-G (`map_pack_plain`, over a flat row of reads, through the
+universe's bucket directory) give JAX's `extract_syncmers_jax` per sequence
+and `map_pack_step` on JAX's padded rows; the directory's lower bound gives
+`np.searchsorted`; the SyngIndex arrays of all three extractors (the device
+one over one or several pieces), the packs of `map_reads` and
+`map_reads_batched` (at several batch sizes and byte caps), and the
+`syng`/`map` CLI bytes equal impg_tpu's."""
 
 import contextlib
 import io
@@ -52,7 +57,7 @@ def _codes(rng, rows, length, n_frac=0.01, pad_rows=()):
 
 
 def _scan_np(codes_t, k, w, seed=7):
-    sel, hi, lo, fwd = sd.syncmer_scan(codes_t, k, w, seed)
+    sel, hi, lo, fwd = sd.syncmer_scan_plain(codes_t, k, w, seed)
     return [sel.numpy(), hi.numpy().view(np.uint32),
             lo.numpy().view(np.uint32), fwd.numpy()]
 
@@ -97,7 +102,8 @@ def test_native_bindings_equal_reference():
     (1, 64, ()), (3, 300, (1,)), (4, 1000, (0, 3)),
 ])
 def test_scan_twin_matches_jax(k, rows, length, pad_rows):
-    """K-F's twin equals JAX's syncmer_scan bit for bit."""
+    """The dense scan under K-F's twin equals JAX's syncmer_scan bit for
+    bit."""
     rng = np.random.default_rng(100 * k + length)
     codes = _codes(rng, rows, length, pad_rows=pad_rows)
     ref = [np.asarray(a) for a in sj.syncmer_scan(jnp.asarray(codes), k, 55,
@@ -108,10 +114,12 @@ def test_scan_twin_matches_jax(k, rows, length, pad_rows):
 @pytest.mark.parametrize("k", [5, 8])
 @pytest.mark.parametrize("universe_kind", ["hits", "misses", "empty"])
 def test_map_pack_twin_matches_jax(k, universe_kind):
-    """K-G's twin adds JAX's map_pack_step counts and n_matched, starting
-    from the counts already there."""
+    """K-G's twin over the padded rows laid end to end, each followed by
+    one 255, adds JAX's map_pack_step counts and n_matched on the rows,
+    starting from the counts already there."""
     rng = np.random.default_rng(k)
     codes = _codes(rng, 6, 400, pad_rows=(2,))
+    flat = np.concatenate([np.append(row, np.uint8(255)) for row in codes])
     sel, hi, lo, _ = _scan_np(torch.from_numpy(codes), k, 55)
     ids = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
     if universe_kind == "empty":
@@ -125,10 +133,11 @@ def test_map_pack_twin_matches_jax(k, universe_kind):
     start = rng.integers(0, 5, uni.size).astype(np.int64)
     counts = torch.from_numpy(start.copy())
     matched = torch.tensor([3], dtype=torch.int64)
-    sd.map_pack(torch.from_numpy(codes), torch.from_numpy(uni.view(np.int64)),
-                counts, matched, k, 55, 7)
+    sd.map_pack(torch.from_numpy(flat), torch.from_numpy(uni.view(np.int64)),
+                torch.from_numpy(sd.bucket_directory(uni)), counts, matched,
+                k, 55, 7)
     if uni.size:
-        uh, ul = sd.split_universe(uni)
+        uh, ul = sj.split_universe(uni)
         c_ref, m_ref = sj.map_pack_step(jnp.asarray(codes), jnp.asarray(uh),
                                         jnp.asarray(ul), k, 55, 7)
         c_ref, m_ref = np.asarray(c_ref), int(m_ref)
@@ -162,26 +171,190 @@ def test_scan_long_k_matches_numpy_oracle(k):
 
 def test_scan_short_rows_and_bad_inputs():
     codes = torch.full((2, 30), 1, dtype=torch.uint8)
-    sel, hi, lo, fwd = sd.syncmer_scan(codes, 8, 55, 7)
+    sel, hi, lo, fwd = sd.syncmer_scan_plain(codes, 8, 55, 7)
     assert sel.shape == hi.shape == lo.shape == fwd.shape == (2, 0)
+    flat = codes.reshape(-1)
+    starts = torch.tensor([0, 60], dtype=torch.int64)
+    found = sd.extract_syncmers_batch(flat, starts, 8, 55, 7)
+    assert found.n == 0 and found.counts.tolist() == [0]
     with pytest.raises(ValueError, match="k <= 16"):
-        sd.syncmer_scan(codes, 17, 55, 7)
+        sd.extract_syncmers_batch(flat, starts, 17, 55, 7)
     with pytest.raises(ValueError, match="uint8"):
-        sd.syncmer_scan(codes.to(torch.int32), 8, 55, 7)
+        sd.extract_syncmers_batch(flat.to(torch.int32), starts, 8, 55, 7)
+    with pytest.raises(ValueError, match="1-D"):
+        sd.extract_syncmers_batch(codes, starts, 8, 55, 7)
+    directory = torch.zeros(sd.N_BUCKETS + 1, dtype=torch.int32)
     with pytest.raises(ValueError, match="int64"):
-        sd.map_pack(codes, torch.zeros(3, dtype=torch.int32),
+        sd.map_pack(flat, torch.zeros(3, dtype=torch.int32), directory,
                     torch.zeros(3, dtype=torch.int64),
                     torch.zeros(1, dtype=torch.int64), 8, 55, 7)
-    assert sd.scan_smem_bytes(8, 55) == 320 + 311 * 9
+    with pytest.raises(ValueError, match="directory"):
+        sd.map_pack(flat, torch.zeros(3, dtype=torch.int64), directory[1:],
+                    torch.zeros(3, dtype=torch.int64),
+                    torch.zeros(1, dtype=torch.int64), 8, 55, 7)
+    # codes 2,112 (2,110 and padding to 16-byte loads), 2,103 k-mers' hash
+    # and prefix and suffix minima, 66 + 1 invalid-code words and their
+    # prefix counts.
+    assert sd.scan_smem_bytes(8, 55) == 2112 + 4 * (3 * 2103 + 2 * 67)
 
 
 def test_encode_batch_pads_ragged_reads():
-    reads = [b"ACGTN", b"AC", b"GGGTT"]
+    """Reads of any length lie end to end in one row, each followed by one
+    255 (the padding of the flat layout)."""
+    reads = [b"ACGTN", b"AC", b"", b"ggGTT"]
     buf = sd.encode_batch(reads)
-    assert buf.shape == (3, 5) and buf.dtype == np.uint8
-    assert buf[0].tolist() == [0, 1, 2, 3, 255]
-    assert buf[1].tolist() == [0, 1, 255, 255, 255]
-    assert sd.encode_batch(reads[::2]).shape == (2, 5)
+    assert buf.dtype == np.uint8
+    assert buf.tolist() == [0, 1, 2, 3, 255, 255, 0, 1, 255, 255,
+                            2, 2, 2, 3, 3, 255]
+    assert sd.encode_batch([]).tolist() == [255]
+
+
+def _flat(seqs):
+    """encode_batch's row of `seqs` and its int64 starts, as tensors."""
+    starts = np.zeros(len(seqs) + 1, np.int64)
+    np.cumsum([len(q) + 1 for q in seqs], out=starts[1:])
+    return torch.from_numpy(sd.encode_batch(seqs)), torch.from_numpy(starts)
+
+
+def _mix(rng, k, w):
+    """Empty, shorter than k + w, exactly k + w, lengths around the tile
+    (256 window starts) and its halo, N runs, lowercase, a homopolymer
+    (every window selects) and a tandem repeat."""
+    seqs = [b"", _seq(rng, k + w - 1), _seq(rng, k + w)]
+    seqs += [_seq(rng, n) for n in (255, 256, 257, 311, 312)]
+    runs = bytearray(_seq(rng, 900))
+    runs[100:130] = b"N" * 30
+    runs[500:502] = b"NN"
+    seqs += [bytes(runs), _seq(rng, 700, 0.01, lower=True), b"C" * 400,
+             b"ACGTTGCAT" * 60, b"GA" * 200]
+    return seqs
+
+
+@pytest.mark.parametrize("k", [5, 8])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_batch_twin_matches_jax_per_sequence(k, seed):
+    """K-F's twin over one flat row gives, for each sequence,
+    extract_syncmers_jax's positions, ids and orientations, in order; a
+    homopolymer selects every window."""
+    rng = np.random.default_rng(seed)
+    seqs = _mix(rng, k, 55)
+    codes, starts = _flat(seqs)
+    found = sd.extract_syncmers_batch_plain(codes, starts, k, 55, 7)
+    counts = found.counts.numpy()
+    pos, fwd = found.pos.numpy(), found.fwd.numpy()
+    ids = found.ids.numpy().view(np.uint64)
+    at = 0
+    for seq, n in zip(seqs, counts):
+        ref = sj.extract_syncmers_jax(seq, k, 55, 7)
+        assert _same((pos[at:at + n], ids[at:at + n], fwd[at:at + n]), ref)
+        at += n
+    assert at == found.n
+    homopolymer = seqs.index(b"C" * 400)
+    assert counts[homopolymer] == 400 - k - 55 + 1
+    assert counts[0] == counts[1] == 0 and counts[2] <= 1  # one window
+    wrapped = sd.extract_syncmers_batch(codes, starts, k, 55, 7)
+    assert torch.equal(wrapped.buffer, found.buffer)
+
+
+def test_batch_device_extractor_matches_native_batch():
+    """extract_syncmers_batch_device (on the CPU: the twin) returns
+    extract_syncmers_batch_native's (pos, ids, fwd, per-sequence counts),
+    over no sequences, one, and the mix."""
+    rng = np.random.default_rng(4)
+    seqs = _mix(rng, 8, 55)
+    for batch in ([], [seqs[3]], seqs):
+        got = sd.extract_syncmers_batch_device(batch, device="cpu")
+        ref = jax_native.extract_syncmers_batch_native(batch, 8, 55, 7)
+        assert [a.dtype for a in got] == [a.dtype for a in ref]
+        assert _same(got, ref) and len(got[3]) == len(batch)
+    assert _same(sd.extract_syncmers_device(seqs[4], device="cpu"),
+                 jax_sync.extract_syncmers_numpy(seqs[4]))
+
+
+@pytest.mark.parametrize("k", [5, 8])
+def test_flat_map_pack_twin_matches_jax_padded_rows(k):
+    """K-G's twin over a flat row of reads (ragged, shorter than k + w,
+    with N, one empty) adds what map_pack_step adds over the same reads
+    padded as JAX pads them."""
+    rng = np.random.default_rng(30 + k)
+    reads = [_seq(rng, int(n), 0.01) for n in rng.integers(150, 300, 12)]
+    reads += [_seq(rng, 40), b"", _seq(rng, k + 55), _seq(rng, 200, 0.1)]
+    padded = np.full((len(reads), 512), 255, np.uint8)
+    for i, r in enumerate(reads):
+        padded[i, :len(r)] = jax_sync.encode_bases(r)
+    sel, hi, lo, _ = _scan_np(torch.from_numpy(padded), k, 55)
+    ids = np.unique((hi.astype(np.uint64) << np.uint64(32))[sel] | lo[sel])
+    noise = rng.integers(0, 2**64 - 1, 30, dtype=np.uint64)
+    uni = np.unique(np.concatenate([ids[::2], noise]))
+    counts = torch.zeros(uni.size, dtype=torch.int64)
+    matched = torch.zeros(1, dtype=torch.int64)
+    sd.map_pack_plain(torch.from_numpy(sd.encode_batch(reads)),
+                      torch.from_numpy(uni.view(np.int64)),
+                      torch.from_numpy(sd.bucket_directory(uni)), counts,
+                      matched, k, 55, 7)
+    uh, ul = sj.split_universe(uni)
+    c_ref, m_ref = sj.map_pack_step(jnp.asarray(padded), jnp.asarray(uh),
+                                    jnp.asarray(ul), k, 55, 7)
+    assert int(m_ref) > 0
+    assert np.array_equal(counts.numpy(), np.asarray(c_ref))
+    assert int(matched) == int(m_ref)
+
+
+def _universe(kind, rng):
+    top = np.uint64(0xFFFF) << np.uint64(48)
+    if kind == "empty":
+        return np.zeros(0, np.uint64)
+    if kind == "one":
+        return np.array([0x8000_1234_5678_9ABC], np.uint64)
+    if kind == "one_bucket":
+        low = rng.integers(0, 2**48, 300, dtype=np.uint64)
+        return np.unique((np.uint64(0xABCD) << np.uint64(48)) | low)
+    if kind == "bucket_edges":
+        return np.unique(np.array(
+            [0, 1, 0x0000_FFFF_FFFF_FFFF, 0x0001_0000_0000_0000,
+             0x7FFF_FFFF_FFFF_FFFF, 0x8000_0000_0000_0000, int(top),
+             2**64 - 2, 2**64 - 1], np.uint64))
+    if kind == "at_or_above_2_63":
+        return np.unique(rng.integers(2**63, 2**64 - 1, 2000,
+                                      dtype=np.uint64))
+    return np.unique(rng.integers(0, 2**64 - 1, 5000, dtype=np.uint64))
+
+
+@pytest.mark.parametrize("kind", ["empty", "one", "one_bucket",
+                                  "bucket_edges", "at_or_above_2_63",
+                                  "random"])
+def test_directory_lower_bound_matches_searchsorted(kind):
+    """lower_bound_plain through bucket_directory equals np.searchsorted on
+    the uint64 universe: for every id, its neighbours, both ends of the
+    range and random ids."""
+    rng = np.random.default_rng(len(kind))
+    uni = _universe(kind, rng)
+    one = np.uint64(1)
+    q = np.concatenate([
+        uni, uni + one, uni - one,
+        np.array([0, 1, 2**63 - 1, 2**63, 2**64 - 2, 2**64 - 1], np.uint64),
+        rng.integers(0, 2**64 - 1, 500, dtype=np.uint64),
+        (np.uint64(0xABCD) << np.uint64(48))
+        | rng.integers(0, 2**48, 100, dtype=np.uint64),
+    ])
+    directory = sd.bucket_directory(uni)
+    assert directory.dtype == np.int32 and directory.size == 2**16 + 1
+    assert directory[0] == 0 and directory[-1] == uni.size
+    got = sd.lower_bound_plain(torch.from_numpy(uni.view(np.int64)),
+                               torch.from_numpy(directory),
+                               torch.from_numpy(q.view(np.int64)))
+    assert np.array_equal(got.numpy(), np.searchsorted(uni, q))
+
+
+def test_pieces_follow_the_budget():
+    """Runs of sequences whose codes and separators fit the budget; a
+    longer sequence is a run of its own."""
+    assert sd._pieces([], 10) == []
+    assert sd._pieces([3, 4, 2], 10) == [(0, 2), (2, 3)]
+    assert sd._pieces([3, 5], 10) == [(0, 2)]
+    assert sd._pieces([30, 2, 40, 1], 10) == [(0, 1), (1, 2), (2, 3),
+                                              (3, 4)]
+    assert sd._pieces([0, 0, 0], 2) == [(0, 2), (2, 3)]
 
 
 @pytest.fixture(scope="module")
@@ -282,6 +455,79 @@ def test_map_reads_equal_reference(panel):
                           ref_pack.counts_for(probe))
 
 
+def _counting(monkeypatch, name):
+    """Counts the calls of syncmer_device's `name`, which still runs."""
+    calls = []
+    fn = getattr(sd, name)
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return fn(*args, **kw)
+
+    monkeypatch.setattr(sd, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("batch", [1, 7, 75, None])
+def test_map_reads_batched_batch_sizes(panel, monkeypatch, batch):
+    """At one read a batch, 7 (a ragged last batch), 75 (150 reads: a
+    multiple) and the default (one batch), map_reads_batched gives host
+    map_reads's pack in ceil(150 / batch) K-G calls."""
+    _seqs, fa, reads, _tmp = panel
+    idx = PortSyng.build_from_fasta([fa])
+    host = port_pack.map_reads(idx, [reads])
+    calls = _counting(monkeypatch, "map_pack")
+    kw = {} if batch is None else {"batch": batch}
+    pk, nr, nm = sd.map_reads_batched(idx, [reads], device="cpu", **kw)
+    assert (nr, nm) == host[1:] and nm > 0
+    assert np.array_equal(pk.counts, host[0].counts)
+    assert len(calls) == -(-150 // (batch or 65536))
+
+
+def test_map_reads_batched_byte_cap(panel, monkeypatch):
+    """A batch also ends at BATCH_CODE_BYTES of codes; a read longer than
+    that is a batch of its own; the pack is the host's."""
+    _seqs, fa, reads, _tmp = panel
+    idx = PortSyng.build_from_fasta([fa])
+    host = port_pack.map_reads(idx, [reads])
+    monkeypatch.setattr(sd, "BATCH_CODE_BYTES", 400)
+    calls = _counting(monkeypatch, "map_pack")
+    pk, nr, nm = sd.map_reads_batched(idx, [reads], device="cpu")
+    assert (nr, nm) == host[1:]
+    assert np.array_equal(pk.counts, host[0].counts)
+    lens = [len(s) for _n, s in port_pack.read_sequences(reads)]
+    assert len(calls) == len(sd._pieces(lens, 400)) > 100
+
+
+def test_device_universe_is_cached_on_the_index(panel):
+    _seqs, fa, _reads, _tmp = panel
+    idx = PortSyng.build_from_fasta([fa])
+    uni, directory = sd.device_universe(idx, "cpu")
+    assert sd.device_universe(idx, torch.device("cpu"))[0] is uni
+    want = port_pack.universe_from_index(idx)
+    assert np.array_equal(uni.numpy().view(np.uint64), want)
+    assert np.array_equal(directory.numpy(), sd.bucket_directory(want))
+
+
+@pytest.mark.parametrize("budget,launches", [
+    (None, 1), (9000, 3), (5000, 5), (3000, 5),
+])
+def test_syng_device_build_pieces(panel, monkeypatch, budget, launches):
+    """SyngIndex.build(extractor="device") on the CPU equals the native
+    build whether the panel (five 4 kb sequences) goes in one piece, two a
+    piece, one a piece, or each past the budget on its own."""
+    _seqs, fa, _reads, _tmp = panel
+    ref = PortSyng.build_from_fasta([fa])
+    if budget is not None:
+        monkeypatch.setattr(sd, "PIECE_BYTES", budget)
+    calls = _counting(monkeypatch, "extract_syncmers_batch")
+    got = PortSyng.build_from_fasta([fa], extractor="device", device="cpu")
+    assert len(calls) == launches
+    for col in OCC:
+        assert np.array_equal(getattr(got, col), getattr(ref, col)), col
+    assert list(got.seq_index.names()) == list(ref.seq_index.names())
+
+
 def test_map_reads_batched_empty_universe(tmp_path, panel):
     _seqs, _fa, reads, _tmp = panel
     empty = PortSyng.build([("tiny", b"ACGT")])
@@ -356,9 +602,10 @@ def test_cli_syng_map_mesh_and_absent_cuda_exit_2(command, capsys):
 def test_wrappers_refuse_a_cuda_device_without_cuda():
     """The device path never carries on on the CPU: a wrapper handed a
     non-CPU tensor launches or raises (here: a `meta` tensor)."""
-    codes = torch.zeros((1, 100), dtype=torch.uint8, device="meta")
+    codes = torch.zeros(100, dtype=torch.uint8, device="meta")
+    starts = torch.tensor([0, 100], dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        sd.syncmer_scan(codes, 8, 55, 7)
+        sd.extract_syncmers_batch(codes, starts, 8, 55, 7)
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             sd.extract_syncmers_device(b"ACGT" * 40, device="cuda:0")
