@@ -11,10 +11,16 @@ just after, and fails unless every kernel of that path launched:
   3. kernels each CUDA kernel against its plain-torch twin on the card,
              exact equality, times from CUDA events in turns, beside its
              bound (bytes over 3.35 TB/s or 32-bit operations over 67 T/s,
-             from this run's data) and, for K-D, the one PyTorch call that
-             computes its function (`rows[:, valid.bool()]`): K-A at the
-             index's records x 4096 queries, K-B/K-C/K-D on one chunk of the
-             depth-2 frontier of the slice below
+             from this run's data) and, where one exists, the one PyTorch
+             call that computes its function: K-A over the engine's
+             segmented layout (whose build goes in `[setup]`) on 4096
+             regions and on 65,536 1 kb regions tiled over the targets plus
+             degenerate queries (`stab_count/4096`, `/65536`, each also
+             against the segmented count's plain version, beside two
+             torch.searchsorted), on malformed records through the window
+             route (`/window_route`) and on 2^24 + 2^12 regions
+             (`/past_cap`); K-B/K-C/K-D on one chunk of the depth-2
+             frontier of the slice below
   4. slice   256 seeds of 10-50 kb, transitive BFS to depth 2 through
              TorchDeviceEngine on a yeast-fitted synthetic index of 250,000
              alignments, then the seeds' region depth (`stats` path) through
@@ -23,7 +29,9 @@ just after, and fails unless every kernel of that path launched:
      profile one more warm BFS under cProfile and torch.profiler: host
              frames against device time, and the device's idle share
   3. kernels K-E project_approx against its twin on the first lane chunk
-             of the approximate depth-2 frontier, lean and full fields
+             of the approximate depth-2 frontier, lean and full fields, and
+             on two crafted lane sets: windows of one lane (a tile spans 512
+             queries) and one query owning the chunk
   4. approx  the same seeds, depth 2, approximate (tracepoint) walks
              through TorchDeviceEngine(with_tracepoints=True) (K-B, K-E,
              K-D; no CIGAR arena uploaded); rows equal to the native
@@ -91,6 +99,7 @@ from __future__ import annotations
 
 import contextlib
 import cProfile
+import dataclasses
 import importlib.util
 import io
 import json
@@ -125,8 +134,12 @@ DEVICE = torch.device("cuda", 0)
 # operations at no more than that rate, so a bound by operations errs low.
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
-# Integer ops per (record, query) pair of K-A: three compares and an add.
+# Integer ops per (record, query) pair of the brute-force count (the first
+# K-A's bound, kept beside the segmented count's): three compares and an
+# add.
 STAB_OPS_PER_PAIR = 4
+# Degenerate queries added to K-A's tiled regions.
+STAB_DEGENERATE = 256
 # The [4 genotype] path: a panel of N_HAPS haplotypes of a LOCUS_LEN locus
 # (the scale of one cosigt locus over an HPRC-release-1-sized panel) and two
 # samples of N_READS reads of READ_LEN bp (30x of the locus), each from the
@@ -400,6 +413,159 @@ def check_compact(D, valid, lrows) -> dict:
     )
 
 
+def random_regions(b: int) -> list:
+    """K-A's queries of earlier runs: target ids in [-1, N_SEQS), 10-50 kb
+    regions at random starts (numpy seed 11)."""
+    rng = np.random.default_rng(11)
+    span = rng.integers(10_000, 50_000, b)
+    qs = rng.integers(0, SEQ_LEN - span).astype(np.int32)
+    return [rng.integers(-1, N_SEQS, b).astype(np.int32), qs,
+            (qs + span).astype(np.int32)]
+
+
+def tiled_regions(b: int, width: int) -> list:
+    """`b` regions of `width` bp tiled over the targets in order (a genome-
+    wide `stats -b` BED), then STAB_DEGENERATE degenerate queries in four
+    equal parts: s > e, s == e, tid = -1 and tid >= N_SEQS (numpy seed
+    12)."""
+    per = SEQ_LEN // width
+    i = np.arange(b)
+    tid = (i // per) % N_SEQS
+    qs = (i % per) * width
+    qe = qs + width
+    rng = np.random.default_rng(12)
+    n = STAB_DEGENERATE // 4
+    d_tid = rng.integers(0, N_SEQS, 4 * n)
+    d_s = rng.integers(0, SEQ_LEN, 4 * n)
+    d_e = d_s + rng.integers(1, 20_000, 4 * n)
+    d_e[:n] = d_s[:n] - rng.integers(1, 5_000, n)  # s > e
+    d_e[n:2 * n] = d_s[n:2 * n]  # s == e
+    d_tid[2 * n:3 * n] = -1
+    d_tid[3 * n:] = N_SEQS + rng.integers(0, 100, n)
+    return [np.concatenate([a, b]).astype(np.int32)
+            for a, b in ((tid, d_tid), (qs, d_s), (qe, d_e))]
+
+
+def stab_work(SC, layout, qa) -> tuple:
+    """(queries on a target, search probes, window records) of K-A's
+    segmented count on these queries: two searches of ceil(log2(n + 1))
+    probes in a segment of n records, and for a query of the window route
+    (s > e, or a malformed index) the records of its window."""
+    n_seg = layout.n_seg
+    tid = qa[0].long()
+    ok = (tid >= 0) & (tid < n_seg)
+    t = tid.clamp(0, max(n_seg - 1, 0))
+    offs = layout.tgt_offsets.long()
+    seg_n = (offs[t + 1] - offs[t]).double()
+    probes = int((torch.ceil(torch.log2(seg_n + 1)) * 2 * ok).sum())
+    win = ok & ((qa[1] > qa[2]) | (not layout.wellformed))
+    windows = 0
+    if bool(win.any()):
+        # The window route's plain count with every t_end passing counts
+        # each window's records.
+        wide = dataclasses.replace(layout, wellformed=False,
+                                   t_end=torch.full_like(layout.t_end,
+                                                         2**31 - 1))
+        windows = int(SC.stab_counts_segmented_plain(
+            wide, qa[0][win], qa[1][win], qa[2][win]).long().sum())
+    return int(ok.sum()), probes, windows
+
+
+def check_stab(SC, d, layout, qa) -> dict:
+    """K-A (over the engine's segmented layout) against its plain twin, the
+    Pallas layout's brute force, and the segmented count's plain version,
+    both on the card; timed in turns beside the library call: two
+    torch.searchsorted over composite (tid << 32) + (key - INT_MIN) int64
+    keys of t_start and of the sorted t_end, then a subtraction, right only
+    for well-formed queries (a target in range, s <= e), so timed on
+    those, with its keys built outside the timing.  The bound counts the
+    function's work: per query its three words and count, per query on a
+    target two segment offsets and the probes of two searches, and the
+    t_end of every window record; the old brute-force count, N x B x 4
+    operations, is kept in the shape."""
+    recs = (d.target_id, d.t_start, d.t_end)
+    got = SC.stab_counts_segmented(layout, *qa)
+    ref = SC.stab_counts_plain(*recs, *qa)
+    seg = SC.stab_counts_segmented_plain(layout, *qa)
+    err = max(max_abs_err(got, ref), max_abs_err(seg, ref))
+    n_seqs = d.tgt_offsets.shape[0] - 1
+    well = (qa[0] >= 0) & (qa[0] < n_seqs) & (qa[1] <= qa[2])
+    wq = [a[well] for a in qa]
+    rec_key = d.target_id.long() << 32
+    key_ts = rec_key + (d.t_start.long() + 2**31)
+    key_te = rec_key + (layout.te_sorted.long() + 2**31)
+
+    def library():
+        q_key = wq[0].long() << 32
+        hi = torch.searchsorted(key_ts, q_key + (wq[2].long() + 2**31),
+                                right=True)
+        return hi - torch.searchsorted(key_te, q_key + (wq[1].long() + 2**31))
+
+    if max_abs_err(library().int(), got[well]):
+        raise AssertionError("stab_count: the library call disagrees")
+    t = time_turns(dict(
+        plain=lambda: SC.stab_counts_plain(*recs, *qa),
+        kernel=lambda: SC.stab_counts_segmented(layout, *qa),
+        library=library,
+    ), reps=10, rounds=4, reps_of=dict(plain=1))
+    b = qa[0].shape[0]
+    on_target, probes, windows = stab_work(SC, layout, qa)
+    brute = bound(0, d.n_records * b * STAB_OPS_PER_PAIR)["bound_ms"]
+    return dict(
+        max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+        library_ms=t["library"],
+        device_ms=device_ms(lambda: SC.stab_counts_segmented(layout, *qa)),
+        **bound(b * 16 + on_target * 8 + probes * 4 + windows * 4),
+        shape=(f"{d.n_records} records x {b} queries ({int(well.sum())} "
+               f"well-formed, {probes} probes, {windows} window records; "
+               f"brute-force bound {brute:.4f} ms by operations)"),
+        hits=int(got.long().sum()),
+    )
+
+
+def check_stab_window_route(SC) -> None:
+    """K-A through `stab_counts` over arbitrary records (the layout of
+    distinct target ids, `segmented_layout`) where some have ts > te, one
+    spans its whole target and some targets are negative: every query takes
+    the window route.  Exact against the brute force on the card."""
+    rng = np.random.default_rng(13)
+    n, b = 200_000, 4096
+    tid = rng.integers(-2, 100, n).astype(np.int32)
+    ts = rng.integers(0, SEQ_LEN, n).astype(np.int32)
+    te = (ts + rng.integers(0, 20_000, n)).astype(np.int32)
+    bad = rng.random(n) < 0.2
+    te[bad] = ts[bad] - rng.integers(1, 5_000, int(bad.sum()))
+    tid[0], ts[0], te[0] = 7, 0, SEQ_LEN
+    q_tid = rng.integers(-3, 103, b).astype(np.int32)
+    q_s = rng.integers(0, SEQ_LEN, b).astype(np.int32)
+    q_e = (q_s + rng.integers(-5_000, 20_000, b)).astype(np.int32)
+    args = [torch.from_numpy(a).to(DEVICE) for a in (tid, ts, te, q_tid, q_s,
+                                                      q_e)]
+    got = SC.stab_counts(*args)
+    err = max_abs_err(got, SC.stab_counts_plain(*args))
+    print(f"[3 kernels] stab_count/window_route {n} records (20% ts > te, "
+          f"targets -2..99) x {b} queries: tolerance=0 (integers) "
+          f"max_abs_err={err} hits={int(got.long().sum())}", flush=True)
+    if err:
+        raise AssertionError("stab_count/window_route: kernel disagrees")
+
+
+def check_stab_past_cap(SC, layout) -> None:
+    """One count of 2^24 + 2^12 regions, past the 65,535 x 256 a call that
+    the first K-A refused: equal to the segmented count's plain version on
+    the card (the brute force would take hours at this size)."""
+    b = (1 << 24) + (1 << 12)
+    qa = [torch.from_numpy(a).to(DEVICE) for a in tiled_regions(b, 1000)]
+    got = SC.stab_counts_segmented(layout, *qa)
+    err = max_abs_err(got, SC.stab_counts_segmented_plain(layout, *qa))
+    dms = device_ms(lambda: SC.stab_counts_segmented(layout, *qa), reps=3)
+    print(f"[3 kernels] stab_count/past_cap {b} queries "
+          f"(> 65535 x 256 = {65535 * 256}): tolerance=0 (integers) "
+          f"max_abs_err={err} device_ms={dms:.4f}", flush=True)
+    if err:
+        raise AssertionError("stab_count/past_cap: kernel disagrees")
+
+
 def first_chunk(D, d, batch, lane_budget: int):
     """K-B over a frontier batch on index `d`, then the (args, kwargs) of
     its first lane chunk for a lane kernel, with clip_overlap as the
@@ -478,29 +644,24 @@ def phase_kernels(eng, index, targets, D, SC, host):
     front = max(rec.batches, key=lambda b: b[0].size)
     rows = {}
 
-    # K-A: every record x 4096 region queries.
-    rng = np.random.default_rng(11)
-    b = 4096
-    span = rng.integers(10_000, 50_000, b)
-    qs_np = rng.integers(0, SEQ_LEN - span).astype(np.int32)
-    qa = [torch.from_numpy(a).to(dev) for a in (
-        rng.integers(-1, N_SEQS, b).astype(np.int32), qs_np,
-        (qs_np + span).astype(np.int32),
-    )]
-    recs = (d.target_id, d.t_start, d.t_end)
-    got = SC.stab_counts(*recs, *qa)
-    ref = SC.stab_counts_plain(*recs, *qa)
+    # K-A over the engine's segmented layout: 4096 regions (the shape of
+    # earlier runs), then 65,536 1 kb regions tiled over the targets with
+    # degenerate queries; the window route over malformed records; a count
+    # past the old 65,535 x 256 cap.
+    layout = eng.stab_layout()
     torch.cuda.synchronize()
-    err = max_abs_err(got, ref)
-    ms, pms = time_pair(lambda: SC.stab_counts(*recs, *qa),
-                        lambda: SC.stab_counts_plain(*recs, *qa), reps=3)
-    rows["stab_count"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
-        device_ms=device_ms(lambda: SC.stab_counts(*recs, *qa), reps=3),
-        **bound(d.n_records * 12 + b * 16,
-                d.n_records * b * STAB_OPS_PER_PAIR),
-        shape=f"{d.n_records}x{b}", hits=int(got.long().sum()),
-    )
+    print(f"[setup] stab layout: t_end sorted within {d.tgt_offsets.shape[0] - 1}"
+          f" target segments of {d.n_records} records, built and uploaded in "
+          f"{eng.stab_layout_s:.3f}s, wellformed={layout.wellformed}",
+          flush=True)
+    for label, q in (("4096", random_regions(4096)),
+                     ("65536", tiled_regions(65_536, 1000))):
+        rows[f"stab_count/{label}"] = check_stab(
+            SC, d, layout, [torch.from_numpy(a).to(dev) for a in q])
+    print_kernel_rows({k: v for k, v in rows.items()
+                       if k.startswith("stab_count/")})
+    check_stab_window_route(SC)
+    check_stab_past_cap(SC, layout)
 
     # K-B over the whole depth-2 frontier.
     fq, largs, lkw = first_chunk(D, d, front, eng.lane_budget)
@@ -555,7 +716,8 @@ def phase_kernels(eng, index, targets, D, SC, host):
             dict(lkw, mask=mask), approximate=False,
         )
         rows[f"compact/{label}"] = check_compact(D, valid, lrows)
-    print_kernel_rows(rows)
+    print_kernel_rows({k: v for k, v in rows.items()
+                       if not k.startswith("stab_count/")})
     return rows, front
 
 
@@ -690,6 +852,38 @@ def phase_profile(eng, index, targets, host) -> None:
     )
 
 
+def crafted_lanes(D, d) -> dict:
+    """K-E's two crafted lane sets over index `d` (numpy seed 14), as
+    (args, kwargs) of a lane kernel: "one_lane", 2^20 queries with a
+    window of one record each, so a 512-lane tile spans 512 queries and
+    overflows the stage of 64 lane offsets (the global search); and
+    "one_query", one query whose window is every record, so it owns the
+    whole chunk.  Ranges sit on the records so that many lanes are valid."""
+    rng = np.random.default_rng(14)
+    n = d.n_records
+    ts, te = d.t_start.cpu().numpy(), d.t_end.cpu().numpy()
+    nq = 1 << 20
+    win = rng.integers(0, n, nq)
+    q_s = ts[win].astype(np.int64) + rng.integers(-300, 300, nq)
+    q_e = q_s + rng.integers(-10, 5_000, nq)
+    mid = int(np.median(te))
+    sets = {
+        "one_lane": (np.ones(nq, np.int64), win, q_s, q_e),
+        "one_query": (np.asarray([n]), np.zeros(1), np.asarray([mid]),
+                      np.asarray([mid + 20_000])),
+    }
+    out = {}
+    for label, (k, lo, qs, qe) in sets.items():
+        offs = np.concatenate([[0], np.cumsum(k)]).astype(np.int64) + 777
+        largs = (d, torch.from_numpy(offs).to(DEVICE),
+                 *(torch.from_numpy(a.astype(np.int32)).to(DEVICE)
+                   for a in (lo, qs, qe)))
+        out[label] = (largs, dict(q_base=0, lane_base=int(offs[0]),
+                                  n_lanes=int(offs[-1] - offs[0]),
+                                  clip_overlap=True))
+    return out
+
+
 def phase_approx(index, targets, kernels, D, host) -> tuple:
     """Approximate (tracepoint) walks: the tracepoint build and upload, K-E
     against its twin on the approximate depth-2 frontier, then the main
@@ -702,8 +896,14 @@ def phase_approx(index, targets, kernels, D, host) -> tuple:
     eng = D.TorchDeviceEngine(index, DEVICE, with_tracepoints=True)
     torch.cuda.synchronize()
     up_s = time.perf_counter() - t0
-    tp_bytes = sum(t.numel() * t.element_size()
-                   for t in eng.dindex.tp.values())
+    # The bytes behind the seven tracepoint columns (column views of two
+    # interleaved tensors): must equal the seven columns' own bytes, so no
+    # separate copy stays resident.
+    tp_bytes = sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                    for t in eng.dindex.tp.values()}.values())
+    if tp_bytes != sum(t.numel() * t.element_size()
+                       for t in eng.dindex.tp.values()):
+        raise AssertionError("approx: tracepoint columns hold extra bytes")
     print(f"[setup] tracepoints: spacing={tp.spacing} "
           f"boundaries={tp.q_bound.size} build_s={tp_s:.1f} "
           f"tp_device_bytes={tp_bytes} engine_upload_s={up_s:.2f}",
@@ -721,6 +921,11 @@ def phase_approx(index, targets, kernels, D, host) -> tuple:
         _, _, rows[f"project_approx/{label}"] = check_lanes(
             D, D.project_approx_lanes, D.project_approx_lanes_plain, largs,
             dict(lkw, mask=D.field_mask(fields)), approximate=True,
+        )
+    for label, (largs, lkw) in crafted_lanes(D, eng.dindex).items():
+        _, _, rows[f"project_approx/{label}"] = check_lanes(
+            D, D.project_approx_lanes, D.project_approx_lanes_plain, largs,
+            dict(lkw, mask=D.field_mask(host.LEAN_FIELDS)), approximate=True,
         )
     print_kernel_rows(rows)
 
@@ -825,7 +1030,8 @@ def phase_paged(index, targets, front, native, kernels, D, host):
         f"lean_bytes={lean} budget={budget} pages={eng.n_pages} "
         f"page_bytes_each={eng.page_bytes_each} uploads={eng.uploads} "
         f"evictions={eng.evictions} h2d_bytes={eng.h2d_bytes} "
-        f"page_build_s={eng.page_build_s:.3f} wall_s={dt:.3f} "
+        f"page_build_s={eng.page_build_s:.3f} "
+        f"stab_layout_s={eng.stab_layout_s:.3f} wall_s={dt:.3f} "
         f"seeds_per_s={len(targets) / dt:.2f} in_engine_s={rec.engine_s:.3f} "
         f"rows_equal_native=True region_depth_equal_stab=True "
         f"launches={json.dumps(launches)}",
@@ -1848,7 +2054,7 @@ def main() -> int:
           "imports_refused=0", flush=True)
 
     table = [
-        ("stab_count", "stab_count", "impg_tpu_torch/csrc/stab_count.cu",
+        ("stab_count", "stab_count/4096", "impg_tpu_torch/csrc/stab_count.cu",
          "impg_tpu/ops/pallas_stab.py:69"),
         ("windows", "windows", "impg_tpu_torch/csrc/windows.cu",
          "impg_tpu/query/device.py:161"),

@@ -16,21 +16,12 @@
 //
 // Design, per block of kThreads threads and a tile of kTile consecutive
 // exact lanes (lane l of the chunk is absolute lane lane_base + l):
-//   1. Query per tile.  Two warps find the queries of the tile's first
-//      and last lanes with one 32-way search each over the int64 lane
-//      offsets (the exclusive cumsum of the window sizes); the offsets
-//      between them are
-//      staged in shared memory, where each lane finds its query with a
-//      short search (a query owns ~160 consecutive lanes, so a tile spans a
-//      few).  A tile whose queries do not fit the stage searches the range
-//      in global memory.  The record is win_lo[q] + (lane - off[q]).
-//   2. Gate first, then a work list.  Every lane reads its record's
-//      t_start, t_end, run count and offset; a lane fails when it misses the
-//      hit gate (t_end >= q_s) or has no overlap to project (the clipped
-//      range is empty, or the record has no runs), and then writes only
-//      valid = 0, since such a lane is never valid.  The lanes that pass go
-//      to a shared-memory list (warp ballot + one shared atomic per warp),
-//      so that the searches below run on full warps.
+//   1-2. Query per tile, then the hit gate and a work list, as lanes.cuh
+//      sets out.  A lane fails when it misses the hit gate (t_end >= q_s)
+//      or has no overlap to project (the clipped range is empty, or the
+//      record has no runs), and then writes only valid = 0, since such a
+//      lane is never valid.  A query owns ~160 consecutive lanes, so a tile
+//      spans a few and its offsets are staged.
 //   3. Shorter search chains.  i0 (the first run whose target end passes
 //      rs) and K = j1 + 1 (the first run whose target start reaches re) are
 //      found together: each step issues one load for each search, so two
@@ -68,7 +59,6 @@ constexpr int kTile = kThreads * kLanesPerThread;
 // Lane offsets staged per tile: queries [q_first, q_first + kStage).
 constexpr int kStage = 64;
 constexpr int32_t kMaxStep = 64;
-constexpr unsigned kFull = 0xffffffffu;
 // Returned by an entry point that launched nothing (empty input); see
 // kernels.NO_LAUNCH.
 constexpr int kNoLaunch = -1;
@@ -158,31 +148,6 @@ __device__ __forceinline__ int32_t interpolate(int32_t x, int32_t ts,
       min(max(g, static_cast<int64_t>(lo)), static_cast<int64_t>(hi) - 1));
 }
 
-// lane_query (lanes.cuh) for one lane, by a whole warp: a 32-way search,
-// each round probing 32 evenly spaced offsets and keeping the bracket of the
-// first one past gl, so ~3 dependent rounds where a bisection takes ~15.
-// Every lane of the warp returns the answer.
-__device__ __forceinline__ int32_t warp_lane_query(
-    const int64_t* __restrict__ lane_off, int32_t nq, int64_t gl, int lane) {
-  int32_t lo = 0, hi = nq;  // first index with offset > gl is in [lo, hi]
-  while (lo < hi) {
-    const int32_t stride = (hi - lo + 31) / 32;
-    const int32_t p = lo + lane * stride;
-    // A probe at or beyond hi is past the answer without a load.
-    const unsigned ballot = __ballot_sync(kFull, p >= hi || lane_off[p] > gl);
-    const int f = __ffs(ballot) - 1;  // first probe at or past the answer
-    if (f < 0) {
-      lo = lo + 31 * stride + 1;
-    } else if (f == 0) {
-      hi = lo;
-    } else {
-      hi = min(hi, lo + f * stride);
-      lo = lo + (f - 1) * stride + 1;
-    }
-  }
-  return lo - 1;
-}
-
 // A lane of the work list.
 struct Work {
   int32_t l, q, rec, rs, re, ts, te, n, off;
@@ -199,32 +164,15 @@ extern "C" __global__ void __launch_bounds__(kThreads) impg_k_project_lanes(
     const int32_t* __restrict__ rec_cnt, Arena ar, int clip_overlap,
     int with_stats, uint32_t field_mask, uint8_t* __restrict__ valid_out,
     int32_t* __restrict__ rows) {
-  __shared__ int64_t s_off[kStage];
-  __shared__ int32_t s_q[2];
-  __shared__ int32_t s_count;
+  __shared__ Tile<kStage> tile;
   __shared__ int32_t w_l[kTile], w_q[kTile], w_rec[kTile], w_rs[kTile],
       w_re[kTile], w_ts[kTile], w_te[kTile], w_n[kTile], w_off[kTile];
   const int tid = threadIdx.x;
   const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * kTile;
   const int64_t tile_end = min(tile0 + kTile, n_lanes);
+  stage_tile(tile, lane_off, nq, lane_base, tile0, tile_end);
 
-  // 1. The tile's queries (warp 0: the first lane's, warp 1: the last's),
-  // and their offsets staged.
-  const int lane = tid & 31;
-  if (tid < 64) {
-    const int32_t q = warp_lane_query(
-        lane_off, nq, lane_base + (tid < 32 ? tile0 : tile_end - 1), lane);
-    if (lane == 0) s_q[tid >> 5] = q;
-  }
-  if (tid == 0) s_count = 0;
-  __syncthreads();
-  const int32_t q_first = s_q[0];
-  const int32_t n_span = s_q[1] - q_first + 1;  // queries in the tile
-  const bool staged = n_span <= kStage;
-  if (staged && tid < n_span) s_off[tid] = lane_off[q_first + tid];
-  __syncthreads();
-
-  // 2. Gate each lane; list the ones left to project.
+  // Gate each lane; list the ones left to project.
 #pragma unroll
   for (int j = 0; j < kLanesPerThread; ++j) {
     const int64_t l = tile0 + j * kThreads + tid;
@@ -232,24 +180,9 @@ extern "C" __global__ void __launch_bounds__(kThreads) impg_k_project_lanes(
     Work w;
     if (l < tile_end) {
       const int64_t gl = lane_base + l;
-      // The last query of the tile whose offset is <= gl.
-      int32_t a = 0, b = n_span - 1;
       int64_t q_off;
-      if (staged) {
-        while (a < b) {
-          const int32_t mid = a + (b - a + 1) / 2;
-          if (s_off[mid] <= gl) a = mid; else b = mid - 1;
-        }
-        q_off = s_off[a];
-      } else {
-        while (a < b) {
-          const int32_t mid = a + (b - a + 1) / 2;
-          if (lane_off[q_first + mid] <= gl) a = mid; else b = mid - 1;
-        }
-        q_off = lane_off[q_first + a];
-      }
+      w.q = tile_lane_query(tile, lane_off, gl, &q_off);
       w.l = static_cast<int32_t>(l);
-      w.q = q_first + a;
       w.rec = win_lo[w.q] + static_cast<int32_t>(gl - q_off);
       const int32_t qs = q_s[w.q];
       const int32_t qe = q_e[w.q];
@@ -265,10 +198,7 @@ extern "C" __global__ void __launch_bounds__(kThreads) impg_k_project_lanes(
                w.rs < w.re;
       if (!listed) valid_out[l] = 0;
     }
-    const unsigned ballot = __ballot_sync(kFull, listed);
-    int32_t slot = 0;
-    if (lane == 0 && ballot) slot = atomicAdd(&s_count, __popc(ballot));
-    slot = __shfl_sync(kFull, slot, 0) + __popc(ballot & ((1u << lane) - 1u));
+    const int32_t slot = list_slot(listed, &tile.count);
     if (listed) {
       w_l[slot] = w.l;
       w_q[slot] = w.q;
@@ -284,7 +214,7 @@ extern "C" __global__ void __launch_bounds__(kThreads) impg_k_project_lanes(
   __syncthreads();
 
   // 3-5. Project the listed lanes.
-  const int32_t count = s_count;
+  const int32_t count = tile.count;
   const int64_t asz = ar.size;
   for (int32_t i = tid; i < count; i += kThreads) {
     const int64_t l = w_l[i];

@@ -47,7 +47,8 @@ _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 _SIGNATURES = {
-    "impg_stab_count": (_P, _P, _P, _I64, _P, _P, _P, _I32, _P, _P),
+    "impg_stab_count": (_P, _P, _I32, _P, _P, _P, _P, _I32, _P, _P, _P, _I32,
+                        _P, _P),
     "impg_windows": (_P, _I32, _P, _P, _P, _P, _P, _I32, _P, _P, _P),
     "impg_project_lanes": (
         _P, _I32, _I64, _I64, _P, _P, _P, _I32,
@@ -58,7 +59,7 @@ _SIGNATURES = {
     "impg_project_approx": (
         _P, _I32, _I64, _I64, _P, _P, _P, _I32,
         _P, _P, _P,
-        _P, _P, _P, _P, _P, _P, _P, _I32,
+        _P, _P, _I32,
         _I32, ctypes.c_uint32, _P, _P, _P,
     ),
     "impg_compact": (_P, _I64, _P, _I32, _P, _P, _P),

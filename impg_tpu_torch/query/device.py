@@ -20,7 +20,12 @@ answered by three hand-written kernels and two pieces of torch glue:
 
 Approximate (tracepoint) walks replace step 3 with K-E `project_approx`
 (csrc/project_approx.cu): the same exact lanes, hit gate and clip, then the
-tracepoint closed form of ops/approx.py over the index's tracepoint columns.
+tracepoint closed form of ops/approx.py over the index's tracepoint columns
+(interleaved on the device: `tracepoint_tensors`).
+
+`stats -r/-b` region depth is K-A `stab_count` (csrc/stab_count.cu, through
+ops/stab_count.py) over the resident record columns, with the t_end values
+sorted within each target segment beside them (`stab_layout`).
 
 Hits therefore come out query-major, then in ascending record order, like
 both JAX paths (windowed and slotted).  Lanes are enumerated exactly, so the
@@ -33,6 +38,7 @@ for CPU tensors and launches its kernel (or raises) for CUDA tensors.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -40,7 +46,12 @@ import torch
 
 from impg_tpu_torch import kernels
 from impg_tpu_torch.ops import approx, projection
-from impg_tpu_torch.ops.stab_count import stab_counts
+from impg_tpu_torch.ops.stab_count import (
+    StabLayout,
+    compute_cummax_te,
+    engine_layout,
+    stab_counts_segmented,
+)
 from impg_tpu_torch.ops.xfer import check_device, upload_i32, upload_i32_columns
 
 # Output fields of a query step, in the JAX engine's row order
@@ -93,23 +104,6 @@ def mask_fields(mask: int) -> list[str]:
     return [f for i, f in enumerate(RESULT_FIELDS) if (mask >> i) & 1]
 
 
-def compute_cummax_te(t_end: np.ndarray, tgt_offsets: np.ndarray) -> np.ndarray:
-    """Prefix max of t_end within each target segment (host, numpy).
-
-    One running max over keys (segment << 32) + t_end: a later segment's keys
-    all exceed an earlier one's, so the max restarts at every segment."""
-    out = np.zeros(t_end.size, np.int32)
-    offs = np.asarray(tgt_offsets, np.int64)
-    lo, hi = int(offs[0]), int(offs[-1])
-    if hi <= lo:
-        return out
-    seg = np.repeat(np.arange(offs.size - 1, dtype=np.int64), np.diff(offs))
-    key = (seg << 32) + t_end[lo:hi].astype(np.int64)
-    np.maximum.accumulate(key, out=key)
-    out[lo:hi] = (key - (seg << 32)).astype(np.int32)
-    return out
-
-
 @dataclass
 class TorchDeviceIndex:
     """Index tensors resident on one device (all int32)."""
@@ -151,6 +145,10 @@ class TorchDeviceIndex:
         "seg_off", "n_seg", "q_bound", "pre_diffs", "pre_aligned", "q_start",
         "q_end",
     )
+    # On the device they are the columns of two tensors
+    # (`tracepoint_tensors`): the per-record ones, then the per-boundary ones.
+    TP_RECORD_KEYS = ("seg_off", "n_seg", "q_start", "q_end")
+    TP_BOUND_KEYS = ("q_bound", "pre_diffs", "pre_aligned")
 
     @classmethod
     def from_arrays(cls, arrays: dict, device, tp: dict | None = None,
@@ -186,10 +184,7 @@ class TorchDeviceIndex:
             search_iters=_iters_for(int(op_cnt.max()) if op_cnt.size else 1),
             window_iters=_iters_for(int(tree.max()) if tree.size else 1),
             device=dev,
-            tp=None if tp is None else {
-                k: up(np.asarray(tp[k]).astype(np.int32, copy=False))
-                for k in cls.TP_KEYS
-            },
+            tp=None if tp is None else tracepoint_tensors(tp, dev),
             tp_spacing=int(tp_spacing) if tp is not None else 0,
         )
 
@@ -258,16 +253,38 @@ def arena_tensors(arrays: dict, keys, device) -> dict:
     return out
 
 
-def _columns_base(arena: dict, group) -> int:
-    """Pointer to the [n_runs, len(group)] tensor behind `group`'s column
-    views, checked to be `arena_tensors`' layout."""
-    base = arena[group[0]]
+def tracepoint_tensors(tp: dict, device) -> dict:
+    """The TP_KEYS columns of `tp` on `device`, in the layout K-E reads:
+    the TP_RECORD_KEYS (seg_off, n_seg, q_start, q_end) as the columns of
+    one int32 [n_records, 4] tensor, the TP_BOUND_KEYS (q_bound, pre_diffs,
+    pre_aligned) as those of one [n_bound, 3] tensor.  A record's four
+    words then come in one 16-byte load, and the boundary rows K-E reads at
+    a segment's two ends in two to four 32-byte sectors where seven arrays
+    cost about ten; no separate copy stays resident, and the plain twin
+    reads the column views as arrays.  int64 prefixes are cast to int32 as
+    the JAX upload does (they are sums within one record)."""
+    out = {}
+    for group in (TorchDeviceIndex.TP_RECORD_KEYS,
+                  TorchDeviceIndex.TP_BOUND_KEYS):
+        t = upload_i32_columns(
+            [np.asarray(tp[k]).astype(np.int32, copy=False) for k in group],
+            device,
+        )
+        out.update({k: t[:, i] for i, k in enumerate(group)})
+    return {k: out[k] for k in TorchDeviceIndex.TP_KEYS}
+
+
+def _columns_base(columns: dict, group) -> int:
+    """Pointer to the [n, len(group)] tensor behind `group`'s column views,
+    checked to be the layout that `arena_tensors` or `tracepoint_tensors`
+    makes."""
+    base = columns[group[0]]
     for i, k in enumerate(group):
-        t = arena[k]
+        t = columns[k]
         if (t.stride() != (len(group),)
                 or t.data_ptr() != base.data_ptr() + 4 * i):
-            raise ValueError(f"arena arrays {group} must be the interleaved "
-                             "columns that arena_tensors makes")
+            raise ValueError(f"arrays {group} must be the interleaved "
+                             "columns of one tensor")
     return base.data_ptr()
 
 
@@ -529,14 +546,16 @@ def project_approx_lanes(dindex: TorchDeviceIndex, lane_off, win_lo, q_s,
     valid = torch.empty(n_lanes, dtype=torch.uint8, device=dev)
     rows = torch.empty((len(mask_fields(mask)), n_lanes), dtype=torch.int32,
                        device=dev)
-    tp = dindex.tp
+    rec4 = _columns_base(dindex.tp, dindex.TP_RECORD_KEYS)
+    if rec4 % 16:
+        raise ValueError("tracepoint record columns must be 16-byte aligned")
     kernels.launch(
         "project_approx", "impg_project_approx",
         lane_off.data_ptr(), nq, lane_base, n_lanes, win_lo.data_ptr(),
         q_s.data_ptr(), q_e.data_ptr(), q_base,
         dindex.t_start.data_ptr(), dindex.t_end.data_ptr(),
-        dindex.query_id.data_ptr(),
-        *(tp[k].data_ptr() for k in dindex.TP_KEYS), dindex.tp_spacing,
+        dindex.query_id.data_ptr(), rec4,
+        _columns_base(dindex.tp, dindex.TP_BOUND_KEYS), dindex.tp_spacing,
         int(clip_overlap), mask, valid.data_ptr(), rows.data_ptr(),
         kernels.stream_of(valid),
     )
@@ -601,6 +620,20 @@ def compact(valid, rows):
 # ── engine ──────────────────────────────────────────────────────────────
 
 
+def stab_layout(index, dindex: TorchDeviceIndex) -> tuple[StabLayout, float]:
+    """(K-A's layout over `dindex`'s resident record columns, host seconds
+    of its build).  The records are sorted by (target, t_start) and cut by
+    tgt_offsets already, and cummax_te is resident; the build is the t_end
+    column sorted within each segment (numpy, from `index`'s host copy) and
+    its upload: index preparation, as cummax_te's is."""
+    t0 = time.perf_counter()
+    r = index.records
+    layout = engine_layout(r.t_start, r.t_end, index.tgt_offsets,
+                           dindex.tgt_offsets, dindex.t_start, dindex.t_end,
+                           dindex.cummax_te)
+    return layout, time.perf_counter() - t0
+
+
 def lane_offsets(k: torch.Tensor):
     """The int64 exclusive cumsum of window sizes `k` ([B] -> [B + 1]), on
     k's device and as a host copy."""
@@ -648,6 +681,8 @@ class TorchDeviceEngine:
         self.dindex = TorchDeviceIndex.build(index, self.device,
                                              with_tracepoints)
         self.lane_budget = LANE_BUDGET
+        self._stab_layout = None
+        self.stab_layout_s = 0.0  # host seconds of the K-A layout build
 
     @property
     def supports_approximate(self) -> bool:
@@ -733,11 +768,18 @@ class TorchDeviceEngine:
             results.append(merged)
         return results
 
+    def stab_layout(self) -> StabLayout:
+        """K-A's segmented layout over the uploaded record columns, built on
+        first use (`stab_layout`) and kept."""
+        if self._stab_layout is None:
+            self._stab_layout, self.stab_layout_s = stab_layout(self.index,
+                                                                self.dindex)
+        return self._stab_layout
+
     def stab_counts(self, q_tid, q_s, q_e) -> np.ndarray:
         """Per-region overlapping directed-record counts (closed-interval
         stab) through K-A, over the uploaded record columns — the primitive
         behind `stats -r/-b`."""
-        d = self.dindex
         qt, qs, qe = self._upload_queries(q_tid, q_s, q_e)
-        out = stab_counts(d.target_id, d.t_start, d.t_end, qt, qs, qe)
-        return out.cpu().numpy()
+        return stab_counts_segmented(self.stab_layout(), qt, qs,
+                                     qe).cpu().numpy()

@@ -18,7 +18,9 @@ resident engine's kernels:
     budget.
   * The record columns and the prefix max of t_end stay resident (28 B per
     record), so one K-B `stab_windows` per depth gives every query's window
-    over the whole index, and K-A `stab_counts` serves `stats -r/-b`.
+    over the whole index, and K-A serves `stats -r/-b` over them (with the
+    t_end values sorted within each target segment, 4 B per record more,
+    uploaded on the first count).
     Windows are split at page edges; per page, K-C `project_lanes` and K-D
     `compact` run over exact lanes with windows relative to the page, and
     the hits' `pair_rec` gets the page's first record added back.  JAX's fixed padded page shape and slot grid exist to
@@ -56,10 +58,11 @@ from impg_tpu_torch.query.device import (
     lane_offsets,
     mask_fields,
     project_lanes,
+    stab_layout,
     stab_windows,
     arena_tensors,
 )
-from impg_tpu_torch.ops.stab_count import stab_counts
+from impg_tpu_torch.ops.stab_count import stab_counts_segmented
 from impg_tpu_torch.ops.xfer import check_device, upload_i32
 
 PAGE_ARRAYS_LEAN = 5  # runs, cum_t, cum_q, irun_before, irun_after
@@ -155,6 +158,8 @@ class TorchPagedEngine:
         self.evictions = 0
         self.h2d_bytes = 0  # page bytes uploaded
         self.page_build_s = 0.0  # host gather + upload, summed
+        self._stab_layout = None
+        self.stab_layout_s = 0.0  # host seconds of the K-A layout build
 
     # ── paging ──
     def _build_page(self, p: int) -> TorchDeviceIndex:
@@ -298,11 +303,18 @@ class TorchPagedEngine:
         out["k_needed"] = np.int32(k_h.max())
         yield out
 
+    def stab_layout(self):
+        """K-A's segmented layout over the resident record columns, built on
+        first use (query/device.py:stab_layout) and kept."""
+        if self._stab_layout is None:
+            self._stab_layout, self.stab_layout_s = stab_layout(self.index,
+                                                                self.rindex)
+        return self._stab_layout
+
     def stab_counts(self, q_tid, q_s, q_e) -> np.ndarray:
         """Per-region overlapping directed-record counts through K-A over
         the resident record columns, as TorchDeviceEngine.stab_counts."""
-        ri = self.rindex
         qt, qs, qe = (upload_i32(np.asarray(a), self.device)
                       for a in (q_tid, q_s, q_e))
-        return stab_counts(ri.target_id, ri.t_start, ri.t_end, qt, qs,
-                           qe).cpu().numpy()
+        return stab_counts_segmented(self.stab_layout(), qt, qs,
+                                     qe).cpu().numpy()

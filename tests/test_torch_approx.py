@@ -205,6 +205,100 @@ def test_tracepoints_upload_matches_jax(index, jax_tp, port):
     )
 
 
+def test_tracepoint_columns_are_interleaved_views(index, port):
+    """On the device the seven TP_KEYS columns are views of two tensors,
+    [n_records, 4] and [n_bound, 3], and no separate copy stays resident:
+    the two backing tensors hold exactly the seven columns' bytes."""
+    tp = port.dindex.tp
+    d = tdev.TorchDeviceIndex
+    n_rec, n_bound = len(index.records), index.tp.q_bound.size
+    for group, n in ((d.TP_RECORD_KEYS, n_rec), (d.TP_BOUND_KEYS, n_bound)):
+        base = tp[group[0]].data_ptr()
+        for i, k in enumerate(group):
+            assert tp[k].shape == (n,) and tp[k].stride() == (len(group),), k
+            assert tp[k].data_ptr() == base + 4 * i, k
+        assert tdev._columns_base(tp, group) == base
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tp.values()}
+    assert len(storages) == 2
+    assert sum(storages.values()) == sum(
+        t.numel() * t.element_size() for t in tp.values()
+    ) == n_rec * 16 + n_bound * 12
+    separate = {k: v.contiguous() for k, v in tp.items()}
+    with pytest.raises(ValueError, match="interleaved"):
+        tdev._columns_base(separate, d.TP_RECORD_KEYS)
+
+
+def _crafted_lanes(index, shape: str, rng):
+    """(lane_off int64 [nq + 1] absolute, win_lo, q_s, q_e) of a crafted
+    lane set: "one_lane" gives every query a window of one record, so a
+    512-lane tile spans 512 queries (past K-E's stage of 64); "one_query"
+    gives one query a window over every record, so it owns the whole
+    chunk."""
+    r = index.records
+    n = len(r)
+    if shape == "one_lane":
+        nq = 3 * n
+        win_lo = rng.integers(0, n, nq)
+        k = np.ones(nq, np.int64)
+        ts, te = r.t_start[win_lo].astype(np.int64), r.t_end[win_lo]
+        q_s = ts + rng.integers(-300, 300, nq)
+        q_e = q_s + rng.integers(-10, 2500, nq)
+        q_s[::5] = te[::5]  # ranges starting where the record ends
+    else:
+        win_lo = np.zeros(1, np.int64)
+        k = np.asarray([n], np.int64)
+        q_s = np.asarray([int(np.median(r.t_end))])  # half the records end
+        q_e = q_s + 2000
+    lane_off = np.concatenate([[0], np.cumsum(k)]) + 12_345
+    return (lane_off, win_lo.astype(np.int32), q_s.astype(np.int32),
+            q_e.astype(np.int32))
+
+
+@pytest.mark.parametrize("clip_overlap", [False, True])
+@pytest.mark.parametrize("shape", ["one_lane", "one_query"])
+def test_crafted_lane_sets_match_jax(index, jax_tp, port, shape,
+                                     clip_overlap):
+    """K-E's wrapper (its twin on CPU) over the two crafted lane sets that
+    chip_smoke holds the kernel to, against `_project_approx_device` on the
+    lanes enumerated here in numpy (query-major, ascending record)."""
+    tp_j, spacing = jax_tp
+    lane_off, win_lo, q_s, q_e = _crafted_lanes(index, shape,
+                                                np.random.default_rng(6))
+    n_lanes = int(lane_off[-1] - lane_off[0])
+    fields = tdev.RESULT_FIELDS
+    mask = tdev.field_mask(fields)
+    valid, rows = tdev.project_approx_lanes(
+        port.dindex, torch.from_numpy(lane_off),
+        *(torch.from_numpy(a) for a in (win_lo, q_s, q_e)), q_base=7,
+        lane_base=int(lane_off[0]), n_lanes=n_lanes,
+        clip_overlap=clip_overlap, mask=mask,
+    )
+    k = np.diff(lane_off)
+    q = np.repeat(np.arange(k.size), k)
+    rec = win_lo[q] + (np.arange(n_lanes) - (lane_off[q] - lane_off[0]))
+    r = index.records
+    r_ts, r_te = r.t_start[rec], r.t_end[rec]
+    rng_s, rng_e = q_s[q], q_e[q]
+    hit = r_te >= rng_s
+    if clip_overlap:
+        rng_s, rng_e = np.maximum(rng_s, r_ts), np.minimum(rng_e, r_te)
+    ref = _project_approx_device(
+        tp_j, spacing, jnp.asarray(rec.astype(np.int32)),
+        *(jnp.asarray(a.astype(np.int32)) for a in (r_ts, r_te, rng_s, rng_e))
+    )
+    ok = np.asarray(ref["valid"]) & hit
+    assert np.array_equal(valid.numpy().astype(bool), ok)
+    assert 0 < ok.sum() < n_lanes
+    got = dict(zip(tdev.mask_fields(mask), rows.numpy()))
+    exp = dict(pair_rec=rec, pair_q=q + 7, query_id=r.query_id[rec],
+               **{f: np.asarray(ref[f]) for f in APPROX_KEYS[1:]})
+    for f, v in exp.items():
+        assert np.array_equal(got[f][ok], np.asarray(v)[ok]), f
+    for f in tdev._APPROX_ZERO_FIELDS:
+        assert not got[f][ok].any(), f
+
+
 def test_tracepoints_keep_the_index_spacing():
     """An index whose tracepoints were built at another spacing keeps them:
     no rebuild at the default."""
