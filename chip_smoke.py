@@ -19,8 +19,14 @@ just after, and fails unless every kernel of that path launched:
              against the segmented count's plain version, beside two
              torch.searchsorted), on malformed records through the window
              route (`/window_route`) and on 2^24 + 2^12 regions
-             (`/past_cap`); K-B/K-C/K-D on one chunk of the depth-2
-             frontier of the slice below
+             (`/past_cap`); K-B (windows and lane offsets in one launch)
+             on the depth-2 frontier of the slice below, its call (host
+             columns to host offsets), device time, bound and latency floor
+             (its search step measured here) beside the plain twin's and the
+             library route's (two torch.searchsorted and a cumsum), and
+             past 2^32 lanes (`windows/past_2^32`: 2^16 + 3 queries each
+             over all of one 2^16-record segment); K-C/K-D on that
+             frontier's first lane chunk
   4. slice   256 seeds of 10-50 kb, transitive BFS to depth 2 through
              TorchDeviceEngine on a yeast-fitted synthetic index of 250,000
              alignments, then the seeds' region depth (`stats` path) through
@@ -28,6 +34,15 @@ just after, and fails unless every kernel of that path launched:
              the native C++ engine's, depths equal to the index's stab
      profile one more warm BFS under cProfile and torch.profiler: host
              frames against device time, and the device's idle share
+  4. partition `partition_alignments` of the same index (50 kb windows, one
+             transitive walk a window) on the native C++ engine and on
+             TorchDeviceEngine: BED bytes equal, the same walks, K-B, K-C
+             and K-D launched; K-B at a walk's depth-1 frontier (one query)
+             and at the median depth-2 frontier of the partition's walks
+             (`[3 kernels] windows`); one device run under cProfile and
+             torch.profiler
+  4. refine  `run_refine` with transitive walks (`refine -x`) over 64 seeds,
+             native against the resident engine: records equal
   3. kernels K-E project_approx against its twin on the first lane chunk
              of the approximate depth-2 frontier, lean and full fields, and
              on two crafted lane sets: windows of one lane (a tile spans 512
@@ -77,8 +92,10 @@ just after, and fails unless every kernel of that path launched:
              topological order, the layout's Spearman rho against path 0;
              then one epoch of the host numpy loop on the same graph
   5. cli     impg_tpu_torch.cli's query -x -o bed|paf, stats -b, query -x
-             --approximate -o bed, and query -x -o bed and stats -b under
-             IMPG_HBM_BUDGET_BYTES=16384 (paged): --compute-engine device,
+             --approximate -o bed, query -x -o bed and stats -b under
+             IMPG_HBM_BUDGET_BYTES=16384 (paged), partition -o bed|paf (the
+             --output-folder files compared) and refine -x:
+             --compute-engine device,
              run in this process with its launches counted, byte-identical
              to host (`python -m impg_tpu_torch.cli` in a subprocess), each
              through the expected engine and kernels; then syng and map -o
@@ -413,6 +430,175 @@ def check_compact(D, valid, lrows) -> dict:
     )
 
 
+def windows_load_latency_us(D) -> float:
+    """Microseconds a step of K-B's search loop adds, measured here: K-B's
+    device time on one query over a segment of 2^24 records (25 dependent
+    probe steps) less that over a segment of one record (one step), over
+    the 24 steps between.  Each launches through a `DepthFront` whose
+    outputs are made once, outside the timing; the two are timed in turns
+    (six rounds, the medians).  The probed lines stay in L2 across
+    launches, as the engine's do."""
+    fns = {}
+    for n in (1, 1 << 24):
+        t_start = torch.arange(n, dtype=torch.int32, device=DEVICE)
+        front = D.DepthFront(types.SimpleNamespace(
+            tgt_offsets=torch.tensor([0, n], dtype=torch.int32,
+                                     device=DEVICE),
+            t_start=t_start, cummax_te=t_start, window_iters=25,
+            device=DEVICE))
+        q = torch.tensor([[0], [n // 2], [n // 2 + 1]], dtype=torch.int32,
+                         device=DEVICE)
+        front.device_windows(*q)
+        fns[n] = lambda front=front, q=q: front.device_windows(*q)
+    acc = {n: [] for n in fns}
+    for r in range(6):
+        for n in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            acc[n].append(device_ms(fns[n], reps=50))
+    ms = {n: float(np.median(v)) for n, v in acc.items()}
+    return (ms[1 << 24] - ms[1]) * 1e3 / 24
+
+
+def check_windows_past_2_32(D) -> None:
+    """K-B's 62-bit carry past 2^31 lanes, on the card: one segment of 2^16
+    records that every one of 2^16 + 3 queries overlaps (2^32 + 3 x 2^16
+    lanes), through a `DepthFront`'s round trip against the plain twin,
+    exact (win_lo, k, offs and the host copies of offs and win_lo)."""
+    n = 1 << 16
+    t_start = torch.arange(n, dtype=torch.int32, device=DEVICE)
+    idx = types.SimpleNamespace(
+        tgt_offsets=torch.tensor([0, n], dtype=torch.int32, device=DEVICE),
+        t_start=t_start, cummax_te=t_start + 1_000_000,
+        window_iters=D._iters_for(n), device=DEVICE)
+    b = n + 3
+    cols = (np.zeros(b, np.int32), np.full(b, n, np.int32),
+            np.full(b, 2_000_000, np.int32))
+    front = D.DepthFront(idx)
+    _, win_lo, k, offs, offs_h, lo_h = front.windows(*cols,
+                                                     host_windows=True)
+    q = torch.from_numpy(np.stack(cols)).to(DEVICE)
+    plain = D.windows_offsets_plain(idx.tgt_offsets, idx.t_start,
+                                    idx.cummax_te, *q, idx.window_iters)
+    err = max(max_abs_err(x, y) for x, y in
+              zip((win_lo[:b], k[:b], offs[:b + 1]), plain))
+    err = max(err, max_abs_err(torch.from_numpy(offs_h.copy()),
+                               plain[2].cpu()),
+              max_abs_err(torch.from_numpy(lo_h.copy()), plain[0].cpu()))
+    total = int(offs_h[-1])
+    print(f"[3 kernels] windows/past_2^32 {b} queries x {n} records: "
+          f"tolerance=0 (integers) max_abs_err={err} lanes={total}",
+          flush=True)
+    if err or total != (1 << 32) + 3 * n:
+        raise AssertionError("windows/past_2^32: kernel disagrees with twin")
+
+
+def check_windows(D, d, batch, label: str, step_us: float) -> dict:
+    """K-B (windows and lane offsets in one launch) against its plain twin
+    on a frontier batch (host int32 columns), exact.  Timed in turns, as
+    calls from the host columns to the offsets on the host: the kernel
+    through an engine's `DepthFront` (one copy up, one launch, one copy
+    back), the plain twin and the library route (two torch.searchsorted
+    over composite (tid << 32) | key keys, a clamp and a cumsum) with one
+    copy each way; then each route's device time alone (the kernel's:
+    the same front's launch on the staged rows, without the copies), and
+    the kernel call's host work alone.  Bound: per query its
+    three words, win_lo and k, its offset, and for a query on a target its
+    two target offsets and its probes, 4 B each; the latency floor: the
+    deepest query's dependent loads (its tid, its target offsets, its
+    search steps) at the step time that `windows_load_latency_us`
+    measured."""
+    front = D.DepthFront(d)
+    b = int(batch[0].size)
+    q, win_lo, k, offs, offs_h, _ = front.windows(*batch)
+    q, win_lo, k, offs = q[:, :b], win_lo[:b], k[:b], offs[:b + 1]
+    plain = D.windows_offsets_plain(d.tgt_offsets, d.t_start, d.cummax_te,
+                                    q[0], q[1], q[2], d.window_iters)
+    err = max(max_abs_err(x, y) for x, y in zip((win_lo, k, offs), plain))
+    err = max(err, max_abs_err(torch.from_numpy(offs_h.copy()),
+                               plain[2].cpu()))
+    n_seqs = d.tgt_offsets.shape[0] - 1
+    rec_tid = d.target_id.long() << 32
+    key_ts = rec_tid | d.t_start.long()
+    key_te = rec_tid | d.cummax_te.long()
+
+    def library(qd):
+        ok = (qd[0] >= 0) & (qd[0] < n_seqs)
+        tid = qd[0].long() << 32
+        cut = torch.searchsorted(key_ts, tid | qd[2].long(), right=True)
+        lo = torch.searchsorted(key_te, tid | qd[1].long())
+        kk = torch.where(ok, torch.clamp(cut - lo, min=0), 0)
+        lib_offs = torch.zeros(kk.shape[0] + 1, dtype=torch.int64,
+                               device=kk.device)
+        lib_offs[1:] = torch.cumsum(kk, 0)
+        return lo, kk, lib_offs
+
+    l_lo, l_k, l_offs = library(q)
+    if max_abs_err(l_k, k) or max_abs_err(l_offs, offs) or max_abs_err(
+            torch.where(k > 0, l_lo, 0), torch.where(k > 0, win_lo, 0)):
+        raise AssertionError(f"windows/{label}: the library route disagrees")
+    cols = np.stack([np.asarray(a, np.int32) for a in batch])
+
+    def up():
+        return D.upload_i32(cols, DEVICE)
+
+    calls = dict(
+        kernel=lambda: front.windows(*batch),
+        plain=lambda: (lambda qd: D.windows_offsets_plain(
+            d.tgt_offsets, d.t_start, d.cummax_te, qd[0], qd[1], qd[2],
+            d.window_iters)[2].cpu().numpy())(up()),
+        library=lambda: library(up())[2].cpu().numpy(),
+    )
+    devices = dict(
+        kernel=lambda: front.device_windows(q[0], q[1], q[2]),
+        library=lambda: library(q),
+    )
+    t = time_turns(calls, reps=20, rounds=4)
+    dev = {name: device_ms(fn, reps=20) for name, fn in devices.items()}
+    # The kernel call's host work: the same calls with the foreign call
+    # (copies, launch, wait) stubbed out.
+    launch = D.kernels.launch
+    D.kernels.launch = lambda *a: True
+    try:
+        front.windows(*batch)
+        t0 = time.perf_counter()
+        for _ in range(200):
+            front.windows(*batch)
+        host_ms = (time.perf_counter() - t0) / 200 * 1e3
+    finally:
+        D.kernels.launch = launch
+    tid = q[0].long()
+    ok = (tid >= 0) & (tid < n_seqs)
+    tid = tid.clamp(0, n_seqs - 1)
+    seg_n = (d.tgt_offsets[tid + 1] - d.tgt_offsets[tid]).double()
+    steps = torch.ceil(torch.log2(seg_n + 1)) * ok
+    probes = int(steps.sum()) * 2
+    dependent = int(steps.max()) + 3 if b else 0
+    row = dict(
+        max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+        library_ms=t["library"], device_ms=dev["kernel"], host_ms=host_ms,
+        library_device_ms=dev["library"],
+        **bound(b * 28 + 8 + int(ok.sum()) * 8 + probes * 4),
+        latency_floor_ms=dependent * step_us / 1e3,
+        dependent_loads=dependent,
+        shape=f"{b} queries ({label})",
+    )
+    # A step that did not measure above zero gives no floor.
+    floor = (f"{row['latency_floor_ms']:.4f}" if step_us > 0
+             else "not_measured")
+    print(f"[3 kernels] windows {row['shape']}: tolerance=0 (integers) "
+          f"max_abs_err={err} call_ms={t['kernel']:.4f} "
+          f"host_ms={host_ms:.4f} "
+          f"device_ms={dev['kernel']:.4f} plain_call_ms={t['plain']:.4f} "
+          f"library_call_ms={t['library']:.4f} "
+          f"library_device_ms={dev['library']:.4f} "
+          f"bound_ms={row['bound_ms']:.6f} bound_by={row['bound_by']} "
+          f"latency_floor_ms={floor} "
+          f"(dependent_loads={dependent} x step_us={step_us:.4f}) "
+          f"lanes={int(offs_h[-1])}", flush=True)
+    if err:
+        raise AssertionError(f"windows/{label}: kernel disagrees with twin")
+    return row
+
+
 def random_regions(b: int) -> list:
     """K-A's queries of earlier runs: target ids in [-1, N_SEQS), 10-50 kb
     regions at random starts (numpy seed 11)."""
@@ -571,9 +757,9 @@ def first_chunk(D, d, batch, lane_budget: int):
     its first lane chunk for a lane kernel, with clip_overlap as the
     transitive walk calls it."""
     fq = [torch.from_numpy(a).to(d.device) for a in batch]
-    win_lo, k = D.stab_windows(d.tgt_offsets, d.t_start, d.cummax_te, *fq,
-                               d.window_iters)
-    offs, offs_h = D.lane_offsets(k)
+    win_lo, _, offs = D.windows_offsets(d.tgt_offsets, d.t_start,
+                                        d.cummax_te, *fq, d.window_iters)
+    offs_h = offs.cpu().numpy()
     q0, q1 = next(D.lane_chunks(offs_h, lane_budget))
     largs = (d, offs[q0:q1 + 1], win_lo[q0:q1], fq[1][q0:q1], fq[2][q0:q1])
     lkw = dict(q_base=q0, lane_base=int(offs_h[q0]),
@@ -631,7 +817,7 @@ def phase_build(kernels) -> None:
           flush=True)
 
 
-def phase_kernels(eng, index, targets, D, SC, host):
+def phase_kernels(eng, index, targets, D, SC, host, step_us: float):
     """Each kernel vs its plain twin on the card (exact); the BFS run here
     captures the depth-2 frontier and warms the path for phase 4.  Returns
     the table rows and the frontier batch."""
@@ -665,46 +851,9 @@ def phase_kernels(eng, index, targets, D, SC, host):
 
     # K-B over the whole depth-2 frontier.
     fq, largs, lkw = first_chunk(D, d, front, eng.lane_budget)
-    wargs = (d.tgt_offsets, d.t_start, d.cummax_te, *fq, d.window_iters)
-    win_lo, k = D.stab_windows(*wargs)
-    p_lo, p_k = D.stab_windows_plain(*wargs)
-    err = max(max_abs_err(win_lo, p_lo), max_abs_err(k, p_k))
-    # The library call: two torch.searchsorted over composite (tid << 32) |
-    # key int64 keys of all records (t_start, cummax_te: both ascending
-    # within a target's records), built once outside the timing.
-    n_seqs = d.tgt_offsets.shape[0] - 1
-    rec_tid = d.target_id.long() << 32
-    key_ts = rec_tid | d.t_start.long()
-    key_te = rec_tid | d.cummax_te.long()
-
-    def library_windows():
-        q_tid = fq[0].long() << 32
-        cut = torch.searchsorted(key_ts, q_tid | fq[2].long(), right=True)
-        lo = torch.searchsorted(key_te, q_tid | fq[1].long())
-        return lo, torch.clamp(cut - lo, min=0)
-
-    l_lo, l_k = library_windows()
-    ok = (fq[0] >= 0) & (fq[0] < n_seqs)
-    if max_abs_err(torch.where(ok, l_k, 0), k) or max_abs_err(
-            torch.where(ok & (k > 0), l_lo, 0), torch.where(k > 0, win_lo, 0)):
-        raise AssertionError("windows: the library call disagrees")
-    t = time_turns(dict(plain=lambda: D.stab_windows_plain(*wargs),
-                        kernel=lambda: D.stab_windows(*wargs),
-                        library=library_windows), rounds=4)
-    ms, pms = t["kernel"], t["plain"]
-    # Bytes: per query its three inputs, two outputs, two target offsets and
-    # the values its two searches probe.
-    tid = fq[0].long()
-    ok = (tid >= 0) & (tid < n_seqs)
-    tid = tid.clamp(0, n_seqs - 1)
-    seg_n = (d.tgt_offsets[tid + 1] - d.tgt_offsets[tid]).double()
-    probes = int((torch.ceil(torch.log2(seg_n + 1)) * 2 * ok).sum())
-    rows["windows"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=pms, library_ms=t["library"],
-        device_ms=device_ms(lambda: D.stab_windows(*wargs)),
-        **bound(front[0].size * 28 + probes * 4),
-        shape=f"{front[0].size} queries",
-    )
+    rows["windows"] = check_windows(D, d, front, "depth-2 frontier",
+                                    step_us)
+    check_windows_past_2_32(D)
 
     # K-C and K-D on the frontier's first lane chunk, lean then full fields.
     for label, fields in (("lean", host.LEAN_FIELDS), ("full", None)):
@@ -717,7 +866,7 @@ def phase_kernels(eng, index, targets, D, SC, host):
         )
         rows[f"compact/{label}"] = check_compact(D, valid, lrows)
     print_kernel_rows({k: v for k, v in rows.items()
-                       if not k.startswith("stab_count/")})
+                       if not k.startswith(("stab_count/", "windows"))})
     return rows, front
 
 
@@ -1040,6 +1189,183 @@ def phase_paged(index, targets, front, native, kernels, D, host):
     return rows
 
 
+
+
+# `partition` of the query index: windows of 50 kb, ranges merged within
+# 1 kb, the command's defaults otherwise (3 kb missing and boundary sizes).
+PART_WINDOW = 50_000
+PART_MERGE = 1_000
+# `refine -x` over the first seeds: flank steps of 10 kb up to half the
+# locus, ranges merged within 1 kb.
+REFINE_REGIONS = 64
+REFINE_STEP = 10_000
+
+
+class WalkCounter:
+    """Counts the transitive walks that partition and refine start (one
+    `query_transitive_bfs` each) while it is entered, and with a Recorder
+    keeps each walk's frontier batches by depth (`by_depth[1]`, ...)."""
+
+    def __init__(self, engine_mod, rec=None):
+        self.mod = engine_mod
+        self.rec = rec
+        self.walks = 0
+        self.by_depth: dict = {}
+
+    def __enter__(self):
+        self.orig = self.mod.query_transitive_bfs
+
+        def walk(*a, **kw):
+            self.walks += 1
+            n0 = len(self.rec.batches) if self.rec else 0
+            out = self.orig(*a, **kw)
+            for depth, b in enumerate(self.rec.batches[n0:] if self.rec
+                                      else (), 1):
+                self.by_depth.setdefault(depth, []).append(b)
+            return out
+
+        self.mod.query_transitive_bfs = walk
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.query_transitive_bfs = self.orig
+
+
+def _folder_bytes(folder: str) -> bytes:
+    """Every file of `folder`, name and bytes, in name order."""
+    out = b""
+    for name in sorted(os.listdir(folder)):
+        out += name.encode() + b"\n" + _read(os.path.join(folder, name))
+    return out
+
+
+def _device_busy(dev) -> tuple:
+    """(device busy ms, top device ops) of a `profiled` run's device ops."""
+    busy = sum(us for us, _ in dev) / 1e3
+    top = sorted(dev, reverse=True)[:6]
+    return busy, json.dumps([[n, round(us / 1e3, 6)] for us, n in top])
+
+
+def _host_top(st, n: int = 6) -> str:
+    top = sorted(((v[2], k[2]) for k, v in st.items()), reverse=True)[:n]
+    return json.dumps([[name, round(t, 6)] for t, name in top])
+
+
+def phase_partition(eng, index, kernels, D, host, part_mod, engine_mod,
+                    tmp: str, step_us: float) -> tuple:
+    """`partition` of the query index, one transitive walk a window: on the
+    native C++ engine, then on the resident engine with the counts zeroed
+    around it (BED bytes equal, the same walks); K-B at a walk's frontiers
+    (depth 1, one query, and the median depth-2 batch); one more device
+    run under cProfile and torch.profiler.  Returns the table rows and the
+    device run's launch counts."""
+    def run(engine, name):
+        folder = os.path.join(tmp, name)
+        t0 = time.perf_counter()
+        collected = part_mod.partition_alignments(
+            index, PART_WINDOW, merge_distance=PART_MERGE,
+            device_engine=engine, output_folder=folder)
+        torch.cuda.synchronize()
+        return collected, time.perf_counter() - t0, _folder_bytes(folder)
+
+    with WalkCounter(engine_mod) as nat_walks:
+        nat, nat_s, nat_bytes = run(host.NativeHostEngine(index), "native")
+    rec = Recorder(eng)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with WalkCounter(engine_mod, rec) as walks:
+        got, dev_s, dev_bytes = run(rec, "device")
+    launches = kernels.launch_counts()
+    check_launches("partition", launches,
+                   ("windows", "project_lanes", "compact"))
+    if dev_bytes != nat_bytes or walks.walks != nat_walks.walks:
+        raise AssertionError("partition: device partitions differ from the "
+                             "native engine's")
+    depth2 = sorted(walks.by_depth.get(2, []), key=lambda b: b[0].size)
+    if not depth2:
+        raise AssertionError("partition: no walk reached depth 2")
+    sizes = [int(b[0].size) for b in depth2]
+    one = next(b for b in walks.by_depth[1] if b[0].size == 1)
+    rows = {
+        "windows/walk_depth_1": check_windows(
+            D, eng.dindex, one, "a walk's depth 1", step_us),
+        "windows/partition_depth_2": check_windows(
+            D, eng.dindex, depth2[len(depth2) // 2],
+            f"median of {len(depth2)} partition depth-2 frontiers", step_us),
+    }
+    wall, st, dev = profiled(lambda: run(eng, "profiled"))
+    busy_ms, dev_top = _device_busy(dev)
+    bfs_tt, _ = _frame_times(
+        st, "_bfs_many_native",
+        os.path.join("impg_tpu_torch", "query", "engine.py"))
+    _, stream_ct = _frame_times(
+        st, "query_batch_stream",
+        os.path.join("impg_tpu_torch", "query", "device.py"))
+    print(
+        f"[4 partition] window={PART_WINDOW} merge={PART_MERGE} "
+        f"walks={walks.walks} partitions={len(got)} "
+        f"bed_bytes={len(dev_bytes)} bed_equal_native=True "
+        f"device_wall_s={dev_s:.3f} native_wall_s={nat_s:.3f} "
+        f"in_engine_s={rec.engine_s:.3f} "
+        f"depth2_frontier_queries(min,median,max)="
+        f"{sizes[0]},{sizes[len(sizes) // 2]},{sizes[-1]} "
+        f"launches={json.dumps(launches)}", flush=True)
+    print(
+        f"[4 partition profile] wall_s={wall:.6f} "
+        f"device_busy_ms={busy_ms:.6f} "
+        f"device_ms_per_walk={busy_ms / walks.walks:.6f} "
+        f"device_idle_share={1 - busy_ms / 1e3 / wall:.6f} "
+        f"bfs_many_native_tottime_s={bfs_tt:.6f} "
+        f"query_batch_stream_cumtime_s={stream_ct:.6f} "
+        f"host_tottime_s_top6={_host_top(st)} device_ms_top6={dev_top}",
+        flush=True)
+    return rows, launches
+
+
+def phase_refine(eng, index, targets, kernels, host, refine_mod,
+                 engine_mod) -> dict:
+    """`refine -x` of the first REFINE_REGIONS seeds (flank steps of
+    REFINE_STEP), one transitive walk a flank candidate: on the native C++
+    engine, then on the resident engine with the counts zeroed around it;
+    the written records equal.  Returns the launch counts."""
+    regions = [(index.seq_index.get_name(t), (s, e), f"seed{i}")
+               for i, (t, s, e) in enumerate(targets[:REFINE_REGIONS])]
+    config = refine_mod.RefineConfig(
+        extension_step=REFINE_STEP, merge_distance=PART_MERGE,
+        use_transitive_bfs=True)
+
+    def run(engine):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        records = refine_mod.run_refine(index, regions, config,
+                                        device_engine=engine)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        refine_mod.write_refine_output(records, out)
+        return out.getvalue(), dt, records
+
+    with WalkCounter(engine_mod) as nat_walks:
+        nat, nat_s, _ = run(host.NativeHostEngine(index))
+    rec = Recorder(eng)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with WalkCounter(engine_mod) as walks:
+        got, dev_s, records = run(rec)
+    launches = kernels.launch_counts()
+    check_launches("refine", launches, ("windows", "project_lanes", "compact"))
+    if got != nat or walks.walks != nat_walks.walks:
+        raise AssertionError("refine: device records differ from native")
+    extended = sum(r.applied_left_extension + r.applied_right_extension > 0
+                   for r in records)
+    print(
+        f"[4 refine] regions={len(regions)} step={REFINE_STEP} "
+        f"walks={walks.walks} extended={extended} "
+        f"support(min,max)={min(r.support_count for r in records)},"
+        f"{max(r.support_count for r in records)} records_equal_native=True "
+        f"device_wall_s={dev_s:.3f} native_wall_s={nat_s:.3f} "
+        f"in_engine_s={rec.engine_s:.3f} launches={json.dumps(launches)}",
+        flush=True)
+    return launches
 
 # ---- the syng read-to-genotype path (K-F, K-G, K-H) ------------------------
 
@@ -1543,6 +1869,8 @@ def phase_cli(tmp: str, kernels) -> None:
 
     paf = os.path.join(tmp, "pan.paf")
     walk = ["query", "-a", paf, "-r", "ref:2000-8000", "-d", "100", "-x"]
+    part = ["partition", "-a", paf, "-w", "5000", "-d", "100",
+            "--output-folder", "{out}"]
     stats = ["stats", "-a", paf, "-b", os.path.join(tmp, "regions.bed")]
     # A third of the demo index's lean bytes (2,718 runs x 20 + 8 records
     # x 36 = 54,648): the resolver pages it.
@@ -1559,11 +1887,22 @@ def phase_cli(tmp: str, kernels) -> None:
         "query -x -o bed, paged": (walk + ["-o", "bed"], paged, "paged",
                                    exact),
         "stats -b, paged": (stats, paged, "paged", ("stab_count",)),
+        "partition -o bed": (part + ["-o", "bed"], {}, "resident", exact),
+        "partition -o paf": (part + ["-o", "paf"], {}, "resident", exact),
+        "refine -x": (["refine", "-a", paf, "-r", "ref:2000-8000", "-d",
+                       "100", "-x"], {}, "resident", exact),
     }
     parts = []
-    for label, (argv, env, kind, path) in checks.items():
-        ref = on_host(argv)
-        dev, launches, engines = on_device(argv, env)
+    for i, (label, (argv, env, kind, path)) in enumerate(checks.items()):
+        # Partition writes into --output-folder: its files are compared
+        # with the standard output.
+        outs = [os.path.join(tmp, f"out{i}_{side}") for side in ("h", "d")]
+        ref = on_host([a.format(out=outs[0]) for a in argv])
+        dev, launches, engines = on_device(
+            [a.format(out=outs[1]) for a in argv], env)
+        if os.path.isdir(outs[0]):
+            ref += _folder_bytes(outs[0]).decode()
+            dev += _folder_bytes(outs[1]).decode()
         if dev != ref or len(dev.splitlines()) < 2:
             raise AssertionError(f"{label}: device output != host output")
         if len(engines) != 1:
@@ -1970,6 +2309,9 @@ def main() -> int:
     from impg_tpu_torch.syng import pack as pack_mod
     from impg_tpu_torch.syng.index import SyngIndex
     from impg_tpu_torch.synth import realistic_directed_index
+    from impg_tpu_torch.commands import partition as part_mod
+    from impg_tpu_torch.commands import refine as refine_mod
+    from impg_tpu_torch.query import engine as engine_mod
 
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -1999,10 +2341,21 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f}s", flush=True)
     targets = scale_queries(len(index.seq_index), N_SEEDS)
 
-    rows, front = phase_kernels(eng, index, targets, D, SC, host)
+    step_us = windows_load_latency_us(D)
+    print(f"[3 kernels] windows search step: {step_us:.4f} us (one query, "
+          "2^24 against 1 records, in turns)", flush=True)
+    rows, front = phase_kernels(eng, index, targets, D, SC, host, step_us)
     launches, native_rows = phase_slice(eng, index, targets, kernels, D, host,
                                         lean_bytes)
     phase_profile(eng, index, targets, host)
+    tmp = tempfile.mkdtemp(prefix="impg_smoke_")
+    try:
+        part_rows, _ = phase_partition(eng, index, kernels, D, host, part_mod,
+                                       engine_mod, tmp, step_us)
+        rows.update(part_rows)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_refine(eng, index, targets, kernels, host, refine_mod, engine_mod)
     del eng
     torch.cuda.empty_cache()
     approx_rows, approx_launches = phase_approx(index, targets, kernels, D,

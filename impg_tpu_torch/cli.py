@@ -1,9 +1,11 @@
 """Command line of the PyTorch/CUDA port.
 
-The port's own CLI for `index`, `query`, `stats`, `syng`, `map`,
-`genotype` and `sort`, with impg_tpu.cli's argument names, defaults, messages
-and output bytes for them; it imports nothing of impg_tpu.  `--compute-engine
-device|auto` runs the port's engines:
+The port's own CLI for `index`, `query`, `stats`, `partition`, `refine`,
+`syng`, `map`, `genotype` and `sort`, with impg_tpu.cli's argument names,
+defaults, messages and output bytes for them; it imports nothing of
+impg_tpu.  `--compute-engine device|auto` runs the port's engines (for
+`partition` and `refine -x`, one transitive walk a window or flank
+candidate):
 
   * `TorchDeviceEngine`, resident on the card; built with tracepoints (and
     no CIGAR arena) for `--approximate` walks, which then run on the card
@@ -23,9 +25,10 @@ device|auto` runs the port's engines:
 
 Not yet ported, and refused with exit status 2 before any input is read:
 every other subcommand of impg_tpu.cli; the FASTA, FASTA+PAF, GFA, MAF,
-FASTA-aln, VCF and regional-syng (`gbwt`) outputs of `query`; `.syngt`,
-`.1aln` and `.tpa` inputs of `query`/`index`/`stats`; sequence-file lookups
-for `--original-sequence-coordinates`; `map -o proj|gaf|paf|graph-pack|
+FASTA-aln, VCF and regional-syng (`gbwt`) outputs of `query`, and the
+FASTA, GFA, MAF and VCF outputs and sequence files of `partition`;
+`.syngt`, `.1aln` and `.tpa` alignment inputs; sequence-file lookups for
+`--original-sequence-coordinates`; `map -o proj|gaf|paf|graph-pack|
 graph-pack-tsv` and `map --graph`; `genotype --graph`; `--compute-engine
 mesh`.
 
@@ -47,7 +50,7 @@ from impg_tpu_torch.io import bed as bed_mod
 
 # The subcommands of impg_tpu.cli that the port has not ported.
 UNPORTED_COMMANDS = (
-    "partition", "refine", "similarity", "lace", "align",
+    "similarity", "lace", "align",
     "render", "read-index", "project", "render-graph",
     "normalize-self-loops", "normalize", "infer", "smooth", "graph",
     "syng-repair", "export-1aln", "export-tpa", "agz", "syng2gfa",
@@ -59,6 +62,9 @@ UNPORTED_FORMATS = (
     "fasta", "fasta+paf", "gfa", "maf", "fasta-aln", "vcf", "gbwt",
 )
 UNPORTED_INPUTS = (".syngt", ".1aln", ".tpa")
+# `partition` outputs of impg_tpu.cli that need the sequence and graph layers
+# (and with them --sequence-files / --sequence-list).
+UNPORTED_PARTITION_FORMATS = ("fasta", "gfa", "maf", "vcf")
 # `map` outputs of impg_tpu.cli that need syng/map.py or the graph layer.
 UNPORTED_MAP_FORMATS = ("proj", "gaf", "paf", "graph-pack", "graph-pack-tsv")
 # Global options of the parser that take a value (for finding the command).
@@ -529,6 +535,115 @@ def cmd_stats(args, device: torch.device) -> int:
     return 0
 
 
+def cmd_partition(args, device: torch.device) -> int:
+    from impg_tpu_torch.commands import partition as partition_mod
+
+    if args.merge_distance is None and not args.no_merge:
+        print(
+            "error: -d/--merge-distance is required. Use --no-merge to disable.",
+            file=sys.stderr,
+        )
+        return 2
+    merge_distance = -1 if args.no_merge else bed_mod.parse_size(args.merge_distance)
+    index = _load_index(args)
+
+    device_engine = resolve_compute_engine(
+        args, index,
+        n_targets=1 + len(index.seq_index) // 4,  # windows per round
+        # Partition's per-window walks carry masked regions (supported
+        # natively) but no CIGARs/identity/subset unless asked.
+        native_ok=not args.transitive_dfs,
+        device=device,
+    )
+
+    partition_mod.partition_alignments(
+        index,
+        bed_mod.parse_size(args.window_size),
+        starting_sequences_file=args.starting_sequences_file,
+        selection_mode=args.selection_mode,
+        merge_distance=merge_distance,
+        min_identity=args.min_result_identity,
+        min_missing_size=args.min_missing_size,
+        min_boundary_distance=args.min_boundary_distance,
+        transitive_dfs=args.transitive_dfs,
+        max_depth=args.max_depth,
+        min_transitive_len=args.min_transitive_len,
+        min_distance_between_ranges=args.min_distance_between_ranges,
+        output_format=args.output_format,
+        output_folder=args.output_folder,
+        separate_files=args.separate_files,
+        rehome_singletons=not args.no_rehome_singletons,
+        device_engine=device_engine,
+    )
+    return 0
+
+
+def cmd_refine(args, device: torch.device) -> int:
+    from impg_tpu_torch.commands import refine as refine_mod
+    from impg_tpu_torch.query.subset import SubsetFilter
+
+    if args.target_range is None and args.target_bed is None:
+        print(
+            "error: either --target-range or --target-bed must be provided",
+            file=sys.stderr,
+        )
+        return 2
+    if args.merge_distance is None and not args.no_merge:
+        print(
+            "error: -d/--merge-distance is required. Use --no-merge to disable.",
+            file=sys.stderr,
+        )
+        return 2
+    merge_distance = -1 if args.no_merge else bed_mod.parse_size(args.merge_distance)
+    index = _load_index(args)
+    if args.target_bed:
+        targets = bed_mod.parse_bed_file(args.target_bed)
+    else:
+        targets = [bed_mod.parse_target_range(args.target_range)]
+
+    subset = (
+        SubsetFilter.load(args.subset_sequence_list)
+        if args.subset_sequence_list
+        else None
+    )
+    blacklist = None
+    if args.blacklist_bed:
+        blacklist = {}
+        for name, (s, e), _ in bed_mod.parse_bed_file(args.blacklist_bed):
+            blacklist.setdefault(name, []).append((s, e))
+
+    config = refine_mod.RefineConfig(
+        span_bp=args.span_bp,
+        max_extension=args.max_extension,
+        support_level=args.pansn_mode,
+        extension_step=args.extension_step,
+        merge_distance=merge_distance,
+        min_identity=args.min_result_identity,
+        use_transitive_bfs=args.transitive and not args.transitive_dfs,
+        use_transitive_dfs=args.transitive and args.transitive_dfs,
+        max_transitive_depth=args.max_depth,
+        min_transitive_len=args.min_transitive_len,
+        min_distance_between_ranges=args.min_distance_between_ranges,
+        subset_match=subset.matches if subset else None,
+        blacklist=blacklist,
+    )
+    device_engine = resolve_compute_engine(
+        args, index, n_targets=len(targets) * 8,  # flank-grid candidates
+        native_ok=(args.transitive and not args.transitive_dfs),
+        device=device,
+    )
+    records = refine_mod.run_refine(
+        index, targets, config, device_engine=device_engine
+    )
+    support_out = open(args.support_output, "w") if args.support_output else None
+    try:
+        refine_mod.write_refine_output(records, sys.stdout, support_out)
+    finally:
+        if support_out:
+            support_out.close()
+    return 0
+
+
 def _comma_list(entries) -> list[str]:
     return [x for e in (entries or []) for x in e.split(",") if x]
 
@@ -789,6 +904,71 @@ def build_parser() -> argparse.ArgumentParser:
     _add_engine_opt(p_stats)
     p_stats.set_defaults(func=cmd_stats)
 
+    p_part = sub.add_parser(
+        "partition", help="Partition all genomes into homologous loci"
+    )
+    _add_common_query_opts(p_part)
+    p_part.add_argument("-w", "--window-size", required=True)
+    p_part.add_argument(
+        "-d",
+        "--merge-distance",
+        help="Merge ranges separated by at most D bp before partition "
+        "assignment (k/m/g suffixes ok)",
+    )
+    p_part.add_argument("--no-merge", action="store_true")
+    p_part.add_argument("--starting-sequences-file")
+    p_part.add_argument("--selection-mode", default="longest")
+    p_part.add_argument("--min-missing-size", type=int, default=3000)
+    p_part.add_argument("--min-boundary-distance", type=int, default=3000)
+    p_part.add_argument("--separate-files", action="store_true")
+    p_part.add_argument("--no-rehome-singletons", action="store_true")
+    p_part.add_argument("--min-result-identity", type=float)
+    p_part.add_argument("--transitive-dfs", action="store_true")
+    p_part.add_argument("-m", "--max-depth", type=int, default=2)
+    p_part.add_argument("--min-transitive-len", type=int, default=101)
+    p_part.add_argument("--min-distance-between-ranges", type=int, default=10)
+    p_part.add_argument(
+        "-o", "--output-format", default="bed",
+        choices=["bed", "paf", "fasta", "gfa", "maf", "vcf"],
+        help="bed or paf (fasta, gfa, maf, vcf: not yet ported)",
+    )
+    p_part.add_argument("--sequence-files", action="append",
+                        help="Not yet ported")
+    p_part.add_argument(
+        "--sequence-list",
+        help="Text file listing sequence file paths (not yet ported)",
+    )
+    p_part.add_argument("--output-folder")
+    _add_engine_opt(p_part)
+    p_part.set_defaults(func=cmd_partition)
+
+    p_ref = sub.add_parser(
+        "refine", help="Refine locus boundaries to maximize spanning support"
+    )
+    _add_common_query_opts(p_ref)
+    p_ref.add_argument("-r", "--target-range")
+    p_ref.add_argument("-b", "--target-bed")
+    p_ref.add_argument("-d", "--merge-distance")
+    p_ref.add_argument("--no-merge", action="store_true")
+    p_ref.add_argument("--span-bp", type=int, default=1000)
+    p_ref.add_argument("--max-extension", type=float, default=0.5)
+    p_ref.add_argument("--extension-step", type=int, default=1000)
+    p_ref.add_argument(
+        "--pansn-mode", choices=["sequence", "sample", "haplotype"],
+        default="sequence",
+    )
+    p_ref.add_argument("--support-output")
+    p_ref.add_argument("--blacklist-bed")
+    p_ref.add_argument("--min-result-identity", type=float)
+    p_ref.add_argument("-x", "--transitive", action="store_true")
+    p_ref.add_argument("--transitive-dfs", action="store_true")
+    p_ref.add_argument("-m", "--max-depth", type=int, default=2)
+    p_ref.add_argument("--min-transitive-len", type=int, default=101)
+    p_ref.add_argument("--min-distance-between-ranges", type=int, default=10)
+    p_ref.add_argument("--subset-sequence-list")
+    _add_engine_opt(p_ref)
+    p_ref.set_defaults(func=cmd_refine)
+
     p_syng = sub.add_parser(
         "syng", help="Build a syncmer-anchor alignment-free index"
     )
@@ -928,8 +1108,14 @@ def main(argv=None, device=None) -> int:
     command = _command_of(argv)
     if command in UNPORTED_COMMANDS:
         _fail(f"`{command}` is not yet ported to impg_tpu_torch "
-              "(ported: index, query, stats, syng, map, genotype, sort)")
+              "(ported: index, query, stats, partition, refine, syng, map, "
+              "genotype, sort)")
     args = build_parser().parse_args(argv)
+    if args.func is cmd_partition and (
+            args.output_format in UNPORTED_PARTITION_FORMATS
+            or args.sequence_files or args.sequence_list):
+        _fail(f"partition -o {args.output_format} and sequence files are not "
+              "yet ported to impg_tpu_torch (ported: -o bed, paf)")
     # index/query/stats take a list of alignment files (syng, map and
     # genotype take one syng index).
     alignments = (_alignment_files(args)

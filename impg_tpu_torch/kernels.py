@@ -49,7 +49,8 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     "impg_stab_count": (_P, _P, _I32, _P, _P, _P, _P, _I32, _P, _P, _P, _I32,
                         _P, _P),
-    "impg_windows": (_P, _I32, _P, _P, _P, _P, _P, _I32, _P, _P, _P),
+    "impg_windows_offsets": (_P, _I32, _P, _P, _P, _P, _P, _I32, _P, _P, _P,
+                             _P, _I64, _P, _P, _P, _P),
     "impg_project_lanes": (
         _P, _I32, _I64, _I64, _P, _P, _P, _I32,
         _P, _P, _P, _P, _P, _P,

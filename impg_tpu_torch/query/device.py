@@ -4,12 +4,14 @@ Counterpart of impg_tpu/query/device.py.  The index lives on the device as
 flat int32 tensors (`TorchDeviceIndex`); a batch of B query ranges is
 answered by three hand-written kernels and two pieces of torch glue:
 
-  1. K-B `stab_windows` (csrc/windows.cu): per query, the candidate window
-     [win_lo, win_lo + k) over the (target, t_start)-sorted records, from two
-     binary searches (t_start > q_e, and the per-target prefix max of t_end
-     >= q_s).
-  2. Glue: the exclusive int64 cumsum of k gives each query's lane offset;
-     the host cuts the batch into chunks of at most `lane_budget` lanes.
+  1. K-B `windows_offsets` (csrc/windows.cu): per query, the candidate
+     window [win_lo, win_lo + k) over the (target, t_start)-sorted records,
+     from two binary searches (t_start > q_e, and the per-target prefix max
+     of t_end >= q_s), and in the same launch the exclusive int64 cumsum of
+     k, each query's lane offset.
+  2. Glue (`DepthFront`): the queries go up in one copy and the offsets come
+     back in one; the host cuts the batch into chunks of at most
+     `lane_budget` lanes.
   3. K-C `project_lanes` (csrc/project_lanes.cu): one thread per exact lane
      (candidate record x query), the hit gate, the transitive walkers' clip
      and the closed-form projection (ops/projection.py) fused; it writes a
@@ -40,6 +42,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -52,7 +55,12 @@ from impg_tpu_torch.ops.stab_count import (
     engine_layout,
     stab_counts_segmented,
 )
-from impg_tpu_torch.ops.xfer import check_device, upload_i32, upload_i32_columns
+from impg_tpu_torch.ops.xfer import (
+    as_i32,
+    check_device,
+    upload_i32,
+    upload_i32_columns,
+)
 
 # Output fields of a query step, in the JAX engine's row order
 # (impg_tpu/query/device.py:RESULT_FIELDS).
@@ -310,13 +318,17 @@ def _device_of(*ts) -> torch.device:
     return dev
 
 
-# ── K-B: candidate windows ──────────────────────────────────────────────
+# ── K-B: candidate windows and lane offsets ─────────────────────────────
+
+# Threads a block of csrc/windows.cu (kThreads): one query each, and one
+# scratch status word a block.
+_WINDOWS_THREADS = 128
 
 
 def stab_windows_plain(tgt_offsets, t_start, cummax_te, q_tid, q_s, q_e,
                        window_iters: int):
-    """Plain twin of K-B: (win_lo, k) int32 [B]; k = 0 for tid outside
-    [0, n_seqs)."""
+    """Plain twin of K-B's windows: (win_lo, k) int32 [B]; k = 0 for tid
+    outside [0, n_seqs)."""
     n_seqs = tgt_offsets.shape[0] - 1
     n_rec = t_start.shape[0]
     zero = torch.zeros_like(q_tid)
@@ -338,27 +350,45 @@ def stab_windows_plain(tgt_offsets, t_start, cummax_te, q_tid, q_s, q_e,
     return torch.where(ok, seg_lo + lo2, zero), torch.where(ok, k, zero)
 
 
-def stab_windows(tgt_offsets, t_start, cummax_te, q_tid, q_s, q_e,
-                 window_iters: int):
-    """(win_lo, k) int32 [B]: K-B on CUDA tensors, the plain twin on CPU."""
-    b = q_tid.shape[0]
+def windows_offsets_plain(tgt_offsets, t_start, cummax_te, q_tid, q_s, q_e,
+                          window_iters: int):
+    """Plain twin of K-B: (win_lo int32 [B], k int32 [B], offs int64 [B + 1]),
+    offs the exclusive cumsum of k."""
+    win_lo, k = stab_windows_plain(tgt_offsets, t_start, cummax_te, q_tid,
+                                   q_s, q_e, window_iters)
+    offs = torch.zeros(k.shape[0] + 1, dtype=torch.int64, device=k.device)
+    offs[1:] = torch.cumsum(k, 0)
+    return win_lo, k, offs
+
+
+def _check_window_index(tgt_offsets, t_start, cummax_te) -> None:
     _check_i32("tgt_offsets", tgt_offsets)
     _check_i32("t_start", t_start)
     _check_i32("cummax_te", cummax_te, t_start.shape[0])
+
+
+def windows_offsets(tgt_offsets, t_start, cummax_te, q_tid, q_s, q_e,
+                    window_iters: int):
+    """(win_lo int32 [B], k int32 [B], offs int64 [B + 1]): each query's
+    candidate window and the exclusive int64 cumsum of the window sizes.
+    K-B on CUDA tensors, one launch through a `DepthFront` of its own; the
+    plain twin on CPU."""
+    b = q_tid.shape[0]
     for name, t in (("q_tid", q_tid), ("q_s", q_s), ("q_e", q_e)):
         _check_i32(name, t, b)
     dev = _device_of(tgt_offsets, t_start, cummax_te, q_tid, q_s, q_e)
-    if dev.type == "cpu":
-        return stab_windows_plain(tgt_offsets, t_start, cummax_te, q_tid, q_s,
-                                  q_e, window_iters)
-    win_lo = torch.empty(b, dtype=torch.int32, device=dev)
-    k = torch.empty(b, dtype=torch.int32, device=dev)
-    kernels.launch(
-        "windows", "impg_windows",
-        tgt_offsets.data_ptr(), tgt_offsets.shape[0] - 1, t_start.data_ptr(),
-        cummax_te.data_ptr(), q_tid.data_ptr(), q_s.data_ptr(), q_e.data_ptr(),
-        b, win_lo.data_ptr(), k.data_ptr(), kernels.stream_of(k),
-    )
+    front = DepthFront(SimpleNamespace(
+        tgt_offsets=tgt_offsets, t_start=t_start, cummax_te=cummax_te,
+        window_iters=window_iters, device=dev))
+    return front.device_windows(q_tid, q_s, q_e)
+
+
+def stab_windows(tgt_offsets, t_start, cummax_te, q_tid, q_s, q_e,
+                 window_iters: int):
+    """(win_lo, k) int32 [B]: the windows of `windows_offsets` (K-B on CUDA
+    tensors, the plain twin on CPU)."""
+    win_lo, k, _ = windows_offsets(tgt_offsets, t_start, cummax_te, q_tid,
+                                   q_s, q_e, window_iters)
     return win_lo, k
 
 
@@ -667,13 +697,137 @@ def hits_to_numpy(hits: torch.Tensor, mask: int, fields) -> dict:
     return out
 
 
+class DepthFront:
+    """One engine's round trip through K-B for a depth's queries.
+
+    The three query columns are staged in pinned memory; one call of K-B's
+    entry point copies them up into the rows of an int32 [3, capacity]
+    buffer (each column contiguous for K-C), launches, copies the lane
+    offsets (and, when asked, the window starts) back into pinned memory
+    and waits for them.  The index columns are checked once, here.  The
+    buffers and K-B's scratch grow and are reused, and their pointers are
+    taken when they grow, so a call does no tensor operation.  What a call
+    returns holds until the next call, which bumps `generation`: an engine
+    serves one query stream at a time, and a stream checks the generation
+    it started with before each chunk.  On a CPU index the plain twin
+    runs."""
+
+    def __init__(self, dindex: TorchDeviceIndex):
+        _check_window_index(dindex.tgt_offsets, dindex.t_start,
+                            dindex.cummax_te)
+        self.dindex = dindex
+        self.device = dindex.device
+        self.cap = 0
+        self.generation = 0
+        self._pinned = None
+
+    def _reserve(self, b: int) -> None:
+        """Device buffers and K-B's scratch (a ticket, a done counter and
+        one status word a block, zeroed once: each launch leaves it zeroed)
+        for a batch of b queries, capacity doubled on growth."""
+        if self.cap and b <= self.cap:
+            return
+        cap = max(2 * b, 4096)
+        dev, d = self.device, self.dindex
+        self._q = torch.empty((3, cap), dtype=torch.int32, device=dev)
+        wk = torch.empty((2, cap), dtype=torch.int32, device=dev)
+        self._win_lo, self._k = wk[0], wk[1]
+        self._offs = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+        scratch = torch.zeros(-(-cap // _WINDOWS_THREADS) + 2,
+                              dtype=torch.int64, device=dev)
+        self._index_args = (
+            d.tgt_offsets.data_ptr(), d.tgt_offsets.shape[0] - 1,
+            d.t_start.data_ptr(), d.cummax_te.data_ptr())
+        self._q_ptrs = tuple(row.data_ptr() for row in self._q)
+        self._out_args = (
+            self._win_lo.data_ptr(), self._k.data_ptr(),
+            self._offs.data_ptr(), scratch.data_ptr(), scratch.shape[0])
+        self._scratch = scratch
+        self._pinned = None
+        self.cap = cap
+
+    def _stage(self) -> None:
+        """Pinned staging at the front's capacity, made on first need."""
+        if self._pinned is not None:
+            return
+        up = torch.empty(3 * self.cap, dtype=torch.int32, pin_memory=True)
+        lo_h = torch.empty(self.cap, dtype=torch.int32, pin_memory=True)
+        offs_h = torch.empty(self.cap + 1, dtype=torch.int64,
+                             pin_memory=True)
+        self._pinned = (up, lo_h, offs_h)
+        self._up_np, self._lo_np, self._offs_np = (
+            t.numpy() for t in self._pinned)
+        self._offs_np[0] = 0
+        self._lo_ptr = lo_h.data_ptr()
+        self._host_args = (up.data_ptr(), offs_h.data_ptr())
+
+    def _launch(self, b: int, q_ptrs, host_args) -> None:
+        """K-B's one launch over b > 0 queries whose columns start at
+        `q_ptrs`, into the front's buffers; `host_args` (staging, offs_h,
+        lo_h or None) make it the round trip, three Nones a launch alone."""
+        kernels.launch(
+            "windows", "impg_windows_offsets", *self._index_args, *q_ptrs,
+            b, *self._out_args, *host_args, kernels.stream_of(self._offs))
+
+    def device_windows(self, q_tid, q_s, q_e):
+        """(win_lo, k, offs) of B queries given as int32 tensors on the
+        front's device: on CUDA one launch into the first B columns of the
+        front's buffers (views; no copy, no wait), on CPU the plain
+        twin."""
+        if self.device.type == "cpu":
+            d = self.dindex
+            return windows_offsets_plain(d.tgt_offsets, d.t_start,
+                                         d.cummax_te, q_tid, q_s, q_e,
+                                         d.window_iters)
+        b = q_tid.shape[0]
+        self._reserve(b)
+        if b:
+            self._launch(b, (q_tid.data_ptr(), q_s.data_ptr(),
+                             q_e.data_ptr()), (None, None, None))
+        return self._win_lo[:b], self._k[:b], self._offs[:b + 1]
+
+    def windows(self, q_tid, q_s, q_e, host_windows: bool = False):
+        """(q int32 [3, *], win_lo, k, offs, offs_h, lo_h): the queries'
+        rows and `windows_offsets` of them in the first B columns (offs:
+        B + 1) of the front's device buffers; offs_h the host copy of offs
+        [B + 1] and lo_h that of win_lo [B] when `host_windows` (else
+        None)."""
+        cols = [as_i32(np.asarray(a)) for a in (q_tid, q_s, q_e)]
+        b = cols[0].size
+        self.generation += 1
+        if self.device.type == "cpu":
+            q = torch.from_numpy(np.stack(cols))
+            win_lo, k, offs = self.device_windows(q[0], q[1], q[2])
+            return (q, win_lo, k, offs, offs.numpy(),
+                    win_lo.numpy() if host_windows else None)
+        self._reserve(b)
+        self._stage()
+        self._up_np[:3 * b].reshape(3, b)[:] = cols
+        if b:
+            self._launch(b, self._q_ptrs, (
+                *self._host_args, self._lo_ptr if host_windows else None))
+        return (self._q, self._win_lo, self._k, self._offs,
+                self._offs_np[:b + 1],
+                self._lo_np[:b] if host_windows else None)
+
+    def check(self, generation: int) -> None:
+        """Raise unless the front still holds the call of `generation`."""
+        if generation != self.generation:
+            raise RuntimeError(
+                "another query stream reused this engine's K-B buffers "
+                "before this stream was drained; an engine serves one "
+                "stream at a time")
+
+
 class TorchDeviceEngine:
     """Host-facing engine with DeviceEngine's contract: numpy in, numpy out.
 
     Built `with_tracepoints`, it also serves approximate (tracepoint) walks
     (`supports_approximate`) and uploads the CIGAR arena only on its first
     exact stream; without, query/engine.py routes approximate walks to the
-    host engine."""
+    host engine.  It serves one query stream at a time: a stream's chunks
+    read the buffers of the engine's `DepthFront`, which the next stream
+    reuses; a stream whose buffers were reused raises."""
 
     def __init__(self, index, device, with_tracepoints: bool = False):
         self.device = check_device(device)
@@ -681,6 +835,7 @@ class TorchDeviceEngine:
         self.dindex = TorchDeviceIndex.build(index, self.device,
                                              with_tracepoints)
         self.lane_budget = LANE_BUDGET
+        self.front = DepthFront(self.dindex)
         self._stab_layout = None
         self.stab_layout_s = 0.0  # host seconds of the K-A layout build
 
@@ -727,13 +882,13 @@ class TorchDeviceEngine:
                 self._ensure_stats()
         project = project_approx_lanes if approximate else project_lanes
         d = self.dindex
-        qt, qs, qe = self._upload_queries(q_tid, q_s, q_e)
-        win_lo, k = stab_windows(d.tgt_offsets, d.t_start, d.cummax_te, qt, qs,
-                                 qe, d.window_iters)
-        offs, offs_h = lane_offsets(k)
+        front = self.front
+        q, win_lo, _, offs, offs_h, _ = front.windows(q_tid, q_s, q_e)
+        generation = front.generation
         for q0, q1 in lane_chunks(offs_h, self.lane_budget):
+            front.check(generation)
             valid, rows = project(
-                d, offs[q0:q1 + 1], win_lo[q0:q1], qs[q0:q1], qe[q0:q1],
+                d, offs[q0:q1 + 1], win_lo[q0:q1], q[1, q0:q1], q[2, q0:q1],
                 q_base=q0, lane_base=int(offs_h[q0]),
                 n_lanes=int(offs_h[q1] - offs_h[q0]),
                 clip_overlap=clip_overlap, mask=mask,

@@ -17,7 +17,7 @@ resident engine's kernels:
     uploads, while the resident record columns below come on top of the
     budget.
   * The record columns and the prefix max of t_end stay resident (28 B per
-    record), so one K-B `stab_windows` per depth gives every query's window
+    record), so one K-B launch per depth gives every query's window
     over the whole index, and K-A serves `stats -r/-b` over them (with the
     t_end values sorted within each target segment, 4 B per record more,
     uploaded on the first count).
@@ -46,6 +46,7 @@ import torch
 
 from impg_tpu_torch.query.device import (
     LANE_BUDGET,
+    DepthFront,
     RESULT_FIELDS,
     STATS_FIELDS,
     TorchDeviceIndex,
@@ -59,7 +60,6 @@ from impg_tpu_torch.query.device import (
     mask_fields,
     project_lanes,
     stab_layout,
-    stab_windows,
     arena_tensors,
 )
 from impg_tpu_torch.ops.stab_count import stab_counts_segmented
@@ -153,6 +153,7 @@ class TorchPagedEngine:
             window_iters=_iters_for(int(tree.max()) if tree.size else 1),
             device=self.device,
         )
+        self.front = DepthFront(self.rindex)
         self._pages: OrderedDict[int, TorchDeviceIndex] = OrderedDict()
         self.uploads = 0
         self.evictions = 0
@@ -272,15 +273,12 @@ class TorchPagedEngine:
         # pair_q orders the depth's hits, so it is always fetched.
         mask = field_mask(fields + ("pair_q",))
         names = mask_fields(mask)
-        ri = self.rindex
-        qt, qs, qe = (upload_i32(np.asarray(a), self.device)
-                      for a in (q_tid, q_s, q_e))
-        win_lo, k = stab_windows(ri.tgt_offsets, ri.t_start, ri.cummax_te, qt,
-                                 qs, qe, ri.window_iters)
-        k_h = k.cpu().numpy()
+        q, _, _, _, depth_offs, lo_h = self.front.windows(
+            q_tid, q_s, q_e, host_windows=True)
+        k_h = np.diff(depth_offs)
         parts = []
         for page, rec_base, sq, offs, offs_h, lo_rel, p_qs, p_qe in (
-            self.page_lanes(qs, qe, win_lo.cpu().numpy(), k_h)
+            self.page_lanes(q[1], q[2], lo_h, k_h)
         ):
             for c0, c1 in lane_chunks(offs_h, self.lane_budget):
                 valid, rows = project_lanes(

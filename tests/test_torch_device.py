@@ -3,6 +3,7 @@ DeviceEngine on the CPU backend, on the same index and queries.  Every
 output is an integer: exact equality, field by field and in order."""
 
 import random
+from types import SimpleNamespace
 
 import numpy as np
 import jax.numpy as jnp
@@ -113,6 +114,102 @@ def test_stab_windows_match_jax(index, port, queries):
     assert k_bad.tolist() == [0, 0]
 
 
+def _windows_case(case, index, port, queries):
+    """(tgt_offsets, t_start, cummax_te, q_tid, q_s, q_e) int32 numpy for
+    one case of test_windows_offsets_match_jax."""
+    d = port.dindex
+    cols = tuple(getattr(d, k).numpy() for k in
+                 ("tgt_offsets", "t_start", "cummax_te"))
+    q_tid, q_s, q_e = (a.copy() for a in queries)
+    n_seqs = len(index.seq_index)
+    if case == "index":
+        q_tid[::5] = -1
+        q_tid[1::7] = n_seqs
+        q_tid[2::11] = n_seqs + 1000
+        return (*cols, q_tid, q_s, q_e)
+    if case == "b0":
+        return (*cols, *(a[:0] for a in (q_tid, q_s, q_e)))
+    if case == "b1":
+        return (*cols, *(a[:1] for a in (q_tid, q_s, q_e)))
+    if case == "not_block_multiple":
+        # Two blocks of 128 queries and one more.
+        rng = np.random.default_rng(3)
+        b = 2 * tdev._WINDOWS_THREADS + 1
+        q_tid = rng.integers(-1, n_seqs + 1, b).astype(np.int32)
+        q_s = rng.integers(0, 15_000, b).astype(np.int32)
+        return (*cols, q_tid, q_s, (q_s + rng.integers(1, 8_000, b)).astype(
+            np.int32))
+    rng = np.random.default_rng(4)
+    if case == "empty_segments":
+        # Targets 0, 2, 3 and 5 hold no records.
+        tgt_offsets = np.array([0, 0, 5, 5, 5, 12, 12], np.int32)
+        t_start = np.concatenate([np.sort(rng.integers(0, 900, 5)),
+                                  np.sort(rng.integers(0, 900, 7))])
+        t_end = t_start + rng.integers(1, 300, 12)
+        cummax = tdev.compute_cummax_te(t_end, tgt_offsets)
+        b = 300
+        q_tid = rng.integers(-1, 8, b).astype(np.int32)
+        q_s = rng.integers(0, 1000, b).astype(np.int32)
+        return (tgt_offsets, t_start.astype(np.int32), cummax, q_tid, q_s,
+                (q_s + rng.integers(0, 400, b)).astype(np.int32))
+    assert case == "past_2^31"
+    # One segment of 2^16 records that all overlap every query: 2^16 + 3
+    # windows of 2^16 lanes each, 2^32 + 3 * 2^16 lanes in all.
+    n = 1 << 16
+    tgt_offsets = np.array([0, n], np.int32)
+    t_start = np.arange(n, dtype=np.int32)
+    t_end = (t_start + 1_000_000).astype(np.int32)
+    b = n + 3
+    return (tgt_offsets, t_start, tdev.compute_cummax_te(t_end, tgt_offsets),
+            np.zeros(b, np.int32), np.full(b, n, np.int32),
+            np.full(b, 2_000_000, np.int32))
+
+
+@pytest.mark.parametrize("case", ["index", "b0", "b1", "not_block_multiple",
+                                  "empty_segments", "past_2^31"])
+def test_windows_offsets_match_jax(index, port, queries, case):
+    """K-B's plain twin, its CPU entry and the engines' front, against
+    impg_tpu's stab_windows plus np.cumsum, exactly: tids -1 and >= n_seqs
+    (the JAX engine's padding, which its lane grid masks: no window here),
+    empty segments, batches of 0 and 1 and of two blocks and one query, and
+    lanes past 2^31."""
+    tgt_offsets, t_start, cummax, q_tid, q_s, q_e = _windows_case(
+        case, index, port, queries)
+    n_seqs = tgt_offsets.size - 1
+    iters = tdev._iters_for(int(np.diff(tgt_offsets).max()))
+    j_lo, j_k = (np.asarray(a) for a in jax_stab_windows(
+        *(jnp.asarray(a) for a in (tgt_offsets, t_start, cummax, q_tid, q_s,
+                                   q_e)), iters, t_start.size))
+    ok = (q_tid >= 0) & (q_tid < n_seqs)
+    want_lo, want_k = np.where(ok, j_lo, 0), np.where(ok, j_k, 0)
+    want_offs = np.concatenate([[0], np.cumsum(want_k, dtype=np.int64)])
+    t = [torch.from_numpy(a) for a in (tgt_offsets, t_start, cummax, q_tid,
+                                       q_s, q_e)]
+    front = tdev.DepthFront(SimpleNamespace(
+        tgt_offsets=t[0], t_start=t[1], cummax_te=t[2], window_iters=iters,
+        device=torch.device("cpu")))
+    b = q_tid.size
+    q, lo_f, k_f, offs_f, offs_h, lo_h = front.windows(q_tid, q_s, q_e,
+                                                       host_windows=True)
+    assert q.dtype == torch.int32
+    assert np.array_equal(q[:, :b].numpy(), np.stack([q_tid, q_s, q_e]))
+    got_front = (lo_f[:b], k_f[:b], offs_f[:b + 1])
+    for got in (tdev.windows_offsets_plain(*t, iters),
+                tdev.windows_offsets(*t, iters), got_front):
+        lo, k, offs = (a.numpy() for a in got)
+        assert (lo.dtype, k.dtype, offs.dtype) == (np.int32, np.int32,
+                                                   np.int64)
+        assert np.array_equal(lo, want_lo)
+        assert np.array_equal(k, want_k)
+        assert np.array_equal(offs, want_offs)
+    assert np.array_equal(offs_h, want_offs)
+    assert np.array_equal(lo_h, want_lo)
+    if case == "past_2^31":
+        assert int(offs[-1]) == (1 << 32) + 3 * (1 << 16)
+    if case == "index":
+        assert int(want_k.sum()) > 0 and not want_k[~ok].any()
+
+
 @pytest.mark.parametrize("slotted", [False, True], ids=["windowed", "slotted"])
 @pytest.mark.parametrize("clip_overlap", [False, True])
 @pytest.mark.parametrize(
@@ -151,6 +248,23 @@ def test_stream_chunking_is_invisible(index, port, queries):
     for key in tdev.RESULT_FIELDS:
         assert np.array_equal(_concat(parts, key), _concat(whole, key)), key
     assert max(int(p["k_needed"]) for p in parts) == int(whole[0]["k_needed"])
+
+
+def test_second_stream_stops_the_first(index, port, queries):
+    """A stream started on an engine whose earlier stream is not drained
+    reuses the engine's K-B buffers: the earlier stream raises at its next
+    chunk instead of projecting the later stream's queries, and the later
+    stream is whole."""
+    small = tdev.TorchDeviceEngine(index, device="cpu")
+    small.lane_budget = 37
+    first = small.query_batch_stream(*queries, clip_overlap=True)
+    next(first)
+    second = list(small.query_batch_stream(*queries, clip_overlap=True))
+    with pytest.raises(RuntimeError, match="one stream at a time"):
+        next(first)
+    whole = list(port.query_batch_stream(*queries, clip_overlap=True))
+    for key in tdev.RESULT_FIELDS:
+        assert np.array_equal(_concat(second, key), _concat(whole, key)), key
 
 
 def test_query_batch_matches_jax(jax_engines, port, queries):

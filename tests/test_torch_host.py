@@ -436,9 +436,9 @@ def test_cli_index_then_query(cli_dirs, capsys):
 @pytest.mark.parametrize(
     "argv",
     [
-        ["partition", "-a", "missing.paf", "-w", "1000"],
+        ["partition", "-a", "missing.paf", "-w", "1000", "-o", "fasta"],
         ["-v", "1", "similarity", "-a", "missing.paf", "-r", "x:0-10"],
-        ["refine", "-a", "missing.paf", "-r", "x:0-10"],
+        ["refine", "-a", "missing.tpa", "-r", "x:0-10", "-x"],
         ["query", "-a", "missing.paf", "-r", "x:0-10", "-d", "10", "-o",
          "fasta"],
         ["query", "-a", "missing.paf", "-r", "x:0-10", "-d", "10", "-o",

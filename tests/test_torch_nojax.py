@@ -3,7 +3,8 @@ load either where they are: a fresh interpreter with `import jax` and `import
 impg_tpu` blocked (names matched exactly, so impg_tpu_torch passes), and every
 attempt recorded, imports the port and runs one small CPU query through the
 engines (exact, approximate, paged) and through the CLI (`index`, `query -x`
-bed/bedpe/paf, `--approximate`, paged, `stats -r/-b`), then the syng path
+bed/bedpe/paf, `--approximate`, paged, `stats -r/-b`, `partition -o bed|paf`
+resident and paged, `refine -x`), then the syng path
 `syng` -> `map` -> `genotype cos` on the device (CPU twins) and host
 engines, and `sort` of a variation graph with the numpy and device (K-I's
 twin) path-SGD backends."""
@@ -44,6 +45,8 @@ sys.meta_path.insert(0, NoJax())
 sys.path.insert(0, sys.argv[1])
 import impg_tpu_torch
 import impg_tpu_torch.cli
+import impg_tpu_torch.commands.partition
+import impg_tpu_torch.commands.refine
 import impg_tpu_torch.io.native
 import impg_tpu_torch.ops.approx
 import impg_tpu_torch.query.device
@@ -77,10 +80,18 @@ with open(bed, "w") as fh:
     fh.write("ref\t500\t2500\ts1\t0\t3000\n")
 runs = [(query + ["-o", fmt], None, spec) for fmt in ("bed", "bedpe", "paf")
         for spec in ("device", "host", "auto")]
+partition = ["partition", "-a", sys.argv[2], "-w", "1000", "-d", "100",
+             "--min-missing-size", "200", "--min-boundary-distance", "200"]
+refine = ["refine", "-a", sys.argv[2], "-r", "ref:500-2500", "-d", "100",
+          "-x", "--max-extension", "0.5", "--extension-step", "500"]
 runs += [(query + ["--approximate", "-o", "bed"], None, "device"),
-         (stats, None, "device"), (stats[:3] + ["-b", bed], None, "device"),
+         (stats, None, "device"), (stats[:3] + ["-b", bed], None, "device")]
+runs += [(partition + ["--output-folder", "parts_" + fmt, "-o", fmt], None,
+          "device") for fmt in ("bed", "paf")]
+runs += [(refine, None, "device"),
          (query + ["-o", "bed"], "4096", "device"),
-         (stats[:3] + ["-b", bed], "4096", "device")]
+         (stats[:3] + ["-b", bed], "4096", "device"),
+         (partition + ["--output-folder", "parts_paged"], "4096", "device")]
 for argv, budget, spec in runs:
     if budget:  # pages the index
         os.environ["IMPG_HBM_BUDGET_BYTES"] = budget
