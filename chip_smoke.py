@@ -39,8 +39,8 @@ just after, and fails unless every kernel of that path launched:
              TorchDeviceEngine: BED bytes equal, the same walks, K-B, K-C
              and K-D launched; K-B at a walk's depth-1 frontier (one query)
              and at the median depth-2 frontier of the partition's walks
-             (`[3 kernels] windows`); one device run under cProfile and
-             torch.profiler
+             (`[3 kernels] windows`); the first quarter of the walks of
+             one more device run under cProfile and torch.profiler
   4. refine  `run_refine` with transitive walks (`refine -x`) over 64 seeds,
              native against the resident engine: records equal
   3. kernels K-E project_approx against its twin on the first lane chunk
@@ -92,7 +92,8 @@ just after, and fails unless every kernel of that path launched:
              topological order, the layout's Spearman rho against path 0;
              then one epoch of the host numpy loop on the same graph
   4. genotype graph  `genotype_graph` on that graph (impg_tpu_torch/
-             genotype/graph.py): 200,000 reads of hap3 + hap16 mapped to the
+             genotype/graph.py): 50,000 reads of hap3 + hap16 (a quarter of
+             a 30x sample's) mapped to the
              90 path walks on the host, the candidates x segments matrix,
              the cuBLAS products and K-H (top 10), seconds per stage, K-H's
              launches equal to its calls, the device's idle share, the head
@@ -116,6 +117,21 @@ just after, and fails unless every kernel of that path launched:
              engine's and the first window's bytes equal to a native run;
              `partition -o fasta` (100 kb windows) and `-o gfa` (on a cut
              panel), every file equal to the native engine's
+  4. graph pipeline  the region graph engines and post-processing stages
+             through the CLI on the same panels, walked on the card as
+             above (the walk, alignment and induction, POA, each stage and
+             the rest timed): `-o gfa --gfa-engine pggb` and `-o
+             gfa:cut-n=100:sort:sgd:smooth,block-len=900:normalize:crush:
+             selfloops` over 2 of those 2 kb windows; `--gfa-engine
+             seqwish|syng-native`, `-o vcf --gfa-engine seqwish` and `-o
+             gfa:sgd --gfa-engine pggb` over 3 windows of the cut panel;
+             every window's walk rows equal to the native engine's, the
+             first window's output and standard error equal to a native
+             run's; then the cut panel's syng index built through K-F
+             (equal to the host build) and `.syngt` queries with sequence
+             files (`-x -o bed` with refined chain ends, `gfa`, `fasta`,
+             `maf`, `fasta-aln`, `vcf`, `gfa:sort`) equal on the
+             device-built and the host-built index
   5. cli     impg_tpu_torch.cli's query -x -o bed|paf, stats -b, query -x
              --approximate -o bed, query -x -o bed and stats -b under
              IMPG_HBM_BUDGET_BYTES=16384 (paged), partition -o bed|paf (the
@@ -158,6 +174,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 
@@ -229,9 +246,11 @@ PATH_SGD_MOVE_TOL = 1e-4
 PATH_SGD_SPAN_TOL = 1e-4
 # K-H's check at bench.py's genotype_e2e shape.
 # [4 genotype graph]: the truth pair (founders 3 and 4 of the graph's 6)
-# and its reads, drawn from the two paths' spellings.
+# and its reads, drawn from the two paths' spellings: a quarter of a 30x
+# sample's reads (7.5x), since read mapping on the host is most of the
+# phase and the smoke's clock is bounded.
 GRAPH_TRUTH = ("hap3", "hap16")
-GRAPH_READS = N_READS
+GRAPH_READS = N_READS // 4
 GRAPH_READ_SEED = 21
 # Neighbouring similarities closer than this are float32 ties: the device
 # ranking is held to the host's float64 one as sets within them.
@@ -1240,6 +1259,10 @@ def phase_paged(index, targets, front, native, kernels, D, host):
 # 1 kb, the command's defaults otherwise (3 kb missing and boundary sizes).
 PART_WINDOW = 50_000
 PART_MERGE = 1_000
+# `[4 partition profile]` profiles the first 1/PART_PROFILE_SHARE of the
+# partition's walks: per-walk costs show in a quarter as in the whole, and
+# the smoke's clock is bounded.
+PART_PROFILE_SHARE = 4
 # `refine -x` over the first seeds: flank steps of 10 kb up to half the
 # locus, ranges merged within 1 kb.
 REFINE_REGIONS = 64
@@ -1301,8 +1324,9 @@ def phase_partition(eng, index, kernels, D, host, part_mod, engine_mod,
     """`partition` of the query index, one transitive walk a window: on the
     native C++ engine, then on the resident engine with the counts zeroed
     around it (BED bytes equal, the same walks); K-B at a walk's frontiers
-    (depth 1, one query, and the median depth-2 batch); one more device
-    run under cProfile and torch.profiler.  Returns the table rows and the
+    (depth 1, one query, and the median depth-2 batch); the first
+    1/PART_PROFILE_SHARE of the walks of one more device run under cProfile
+    and torch.profiler.  Returns the table rows and the
     device run's launch counts."""
     def run(engine, name):
         folder = os.path.join(tmp, name)
@@ -1338,7 +1362,30 @@ def phase_partition(eng, index, kernels, D, host, part_mod, engine_mod,
             D, eng.dindex, depth2[len(depth2) // 2],
             f"median of {len(depth2)} partition depth-2 frontiers", step_us),
     }
-    wall, st, dev = profiled(lambda: run(eng, "profiled"))
+    n_prof = walks.walks // PART_PROFILE_SHARE
+
+    class Enough(Exception):
+        """Ends the profiled partition after its first n_prof walks."""
+
+    def first_walks():
+        walk = engine_mod.query_transitive_bfs
+        done = [0]
+
+        def counted(*a, **kw):
+            if done[0] == n_prof:
+                raise Enough
+            done[0] += 1
+            return walk(*a, **kw)
+
+        engine_mod.query_transitive_bfs = counted
+        try:
+            run(eng, "profiled")
+        except Enough:
+            pass
+        finally:
+            engine_mod.query_transitive_bfs = walk
+
+    wall, st, dev = profiled(first_walks)
     busy_ms, dev_top = _device_busy(dev)
     bfs_tt, _ = _frame_times(
         st, "_bfs_many_native",
@@ -1356,9 +1403,10 @@ def phase_partition(eng, index, kernels, D, host, part_mod, engine_mod,
         f"{sizes[0]},{sizes[len(sizes) // 2]},{sizes[-1]} "
         f"launches={json.dumps(launches)}", flush=True)
     print(
-        f"[4 partition profile] wall_s={wall:.6f} "
+        f"[4 partition profile] walks={n_prof} of {walks.walks} (reduced: "
+        f"the first 1/{PART_PROFILE_SHARE}) wall_s={wall:.6f} "
         f"device_busy_ms={busy_ms:.6f} "
-        f"device_ms_per_walk={busy_ms / walks.walks:.6f} "
+        f"device_ms_per_walk={busy_ms / n_prof:.6f} "
         f"device_idle_share={1 - busy_ms / 1e3 / wall:.6f} "
         f"bfs_many_native_tottime_s={bfs_tt:.6f} "
         f"query_batch_stream_cumtime_s={stream_ct:.6f} "
@@ -2459,7 +2507,9 @@ def phase_genotype_graph(text, gc, kernels, co, gt_graph, gt_core, gfa_mod,
     del spell
     print(f"[setup] graph genotype reads: {GRAPH_READS} x {READ_LEN} bp of "
           f"{'+'.join(GRAPH_TRUTH)}, generated in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+          f"{time.perf_counter() - t0:.1f}s; reduced: {GRAPH_READS} of a "
+          f"30x sample's {N_READS} reads (host read mapping's time)",
+          flush=True)
 
     times: dict = {}
     seen: dict = {}
@@ -2674,14 +2724,19 @@ def _row_array(rows) -> np.ndarray:
 class StageClock:
     """While entered: the seconds spent in the walks
     (`engine.query_transitive_bfs_many`, through which every single walk
-    goes too) and in POA (`graph/poa.poa_align`), and each walk's rows as a
-    sorted array, taken before the caller merges them."""
+    goes too) and in each of `stages`, (module, function name, stage)
+    triples; a call counts in the stage of the outermost timed call it runs
+    under (crush's and smooth's POA in theirs), threads included.  Each
+    walk's rows are kept as a sorted array, taken before the caller merges
+    them."""
 
-    def __init__(self, engine_mod, poa_mod):
+    def __init__(self, engine_mod, stages):
         self.targets = ((engine_mod, "query_transitive_bfs_many", "walk"),
-                        (poa_mod, "poa_align", "poa"))
-        self.s = {"walk": 0.0, "poa": 0.0}
+                        *stages)
+        self.s = {stage: 0.0 for _, _, stage in self.targets}
         self.rows: list = []
+        self.depth = 0
+        self.lock = threading.Lock()
 
     def __enter__(self):
         self.saved = [(mod, name, getattr(mod, name))
@@ -2692,9 +2747,16 @@ class StageClock:
 
     def _timed(self, fn, stage):
         def timed(*a, **kw):
+            with self.lock:
+                self.depth += 1
             t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            self.s[stage] += time.perf_counter() - t0
+            try:
+                out = fn(*a, **kw)
+            finally:
+                with self.lock:
+                    self.depth -= 1
+                    if self.depth == 0:
+                        self.s[stage] += time.perf_counter() - t0
             if stage == "walk":
                 self.rows.extend(_row_array(r) for r in out)
             return out
@@ -2703,6 +2765,84 @@ class StageClock:
     def __exit__(self, *exc):
         for mod, name, fn in self.saved:
             setattr(mod, name, fn)
+
+
+def cli_run(kernels, stages, argv, engine, out=None, traced=False):
+    """The port's CLI in this process, `argv` with `--compute-engine
+    engine`, the launch counts zeroed around it and its stages timed
+    (`StageClock`; its `stderr` holds the run's standard error): (output
+    bytes, wall s, clock, launches, device busy ms or None, runs made).  A traced run whose trace holds no device op though
+    it launched kernels (torch.profiler lost the first traces of
+    `[4 sequence]` after the earlier phases' in one chip run) runs once
+    more; if that trace is empty too, its busy time is not measured
+    (None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from impg_tpu_torch import cli as tcli
+    from impg_tpu_torch.query import engine as engine_mod
+
+    for attempt in range(2 if traced else 1):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with contextlib.ExitStack() as st:
+            clock = st.enter_context(StageClock(engine_mod, stages))
+            tp = (st.enter_context(profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+                  if traced else None)
+            st.enter_context(contextlib.redirect_stdout(buf))
+            err = st.enter_context(contextlib.redirect_stderr(io.StringIO()))
+            t0 = time.perf_counter()
+            rc = tcli.main([*argv, "--compute-engine", engine],
+                           device=DEVICE)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        clock.stderr = err.getvalue()
+        launches = kernels.launch_counts()
+        if rc != 0:
+            raise RuntimeError(f"cli {argv} {engine} rc={rc}: "
+                               f"{clock.stderr[-2000:]}")
+        ops = _device_ops(tp) if traced else []
+        if ops or not any(launches.values()):
+            break
+    if out is None:
+        data = buf.getvalue().encode()
+    elif os.path.isdir(out):
+        data = _folder_bytes(out)
+    else:
+        data = _read(out)
+    busy = sum(us for us, _ in ops) / 1e3 if ops else None
+    return data, wall, clock, launches, busy, attempt + 1
+
+
+def device_share(busy, wall: float) -> str:
+    """The card's busy ms and idle share of a traced run's wall s."""
+    if busy is None:
+        return "device_busy_ms=not_measured"
+    return (f"device_busy_ms={busy:.6f} "
+            f"device_idle_share={1 - busy / 1e3 / wall:.6f}")
+
+
+def windows_equal(label: str, dev, rows: list, one: bytes, ref) -> None:
+    """Every window's walk rows of the device run `dev` equal the native
+    engine's (`rows`, one array a window), and the native run `ref` over
+    the first window equals the device run's first window (`one`, selected
+    from the device output)."""
+    if len(dev[2].rows) != len(rows):
+        raise AssertionError(f"{label}: {len(dev[2].rows)} walks, not "
+                             f"{len(rows)}")
+    for i, (a, b) in enumerate(zip(dev[2].rows, rows)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{label}: window {i} rows differ from the "
+                                 "native engine's")
+    if one != ref[0] or not one:
+        pairs = zip(one.splitlines(), ref[0].splitlines())
+        diff = next(((i, a[:200], b[:200]) for i, (a, b)
+                     in enumerate(pairs) if a != b), None)
+        raise AssertionError(f"{label}: the first window's output differs "
+                             f"from the native run's ({len(one)} against "
+                             f"{len(ref[0])} bytes; first different line: "
+                             f"{diff})")
 
 
 def sequence_data(tmp: str, synth, name: str, **kw) -> tuple:
@@ -2723,7 +2863,7 @@ def _bed(path: str, windows: list) -> str:
     return path
 
 
-def phase_sequence(tmp: str, kernels, synth) -> None:
+def phase_sequence(tmp: str, kernels, synth) -> dict:
     """`query -o fasta|fasta+paf|gfa|maf|fasta-aln|vcf`, `similarity --pca`
     and `partition -o fasta|gfa` through the port's CLI in this process,
     `--compute-engine device` on the card against the native (or, for
@@ -2736,9 +2876,9 @@ def phase_sequence(tmp: str, kernels, synth) -> None:
     similarity (POA's cost grows with the square of the window, so not every
     POA runs twice): each window's walk rows equal to the native engine's,
     and the output of one window, run natively, equal to the device run's
-    output for that window."""
-    from torch.profiler import ProfilerActivity, profile
-
+    output for that window.  Returns the panel's and the cut panel's files,
+    the 2 kb windows and their native walk rows, for `[4 graph
+    pipeline]`."""
     from impg_tpu_torch import cli as tcli
     from impg_tpu_torch.graph import poa as poa_mod
     from impg_tpu_torch.host import NativeHostEngine, load_or_build
@@ -2778,42 +2918,10 @@ def phase_sequence(tmp: str, kernels, synth) -> None:
         index, [(index.seq_index.get_id("base"), s, e) for s, e in poa_win],
         max_depth=2, device_engine=NativeHostEngine(index))]
 
+    poa_stage = [(poa_mod, "poa_align", "poa")]
+
     def run(argv, engine, out=None, traced=False):
-        """The CLI in this process: (output bytes, seconds, StageClock,
-        launches, device busy ms or None, runs made).  A traced run whose trace holds
-        no device op though it launched kernels (torch.profiler lost the
-        first traces of this phase after the earlier phases' in one chip
-        run) runs once more; if that trace is empty too, its busy time is
-        not measured (None)."""
-        for attempt in range(2 if traced else 1):
-            buf = io.StringIO()
-            torch.cuda.synchronize()
-            kernels.reset_launch_counts()
-            with contextlib.ExitStack() as st:
-                clock = st.enter_context(StageClock(engine_mod, poa_mod))
-                tp = (st.enter_context(profile(activities=[
-                    ProfilerActivity.CPU, ProfilerActivity.CUDA]))
-                      if traced else None)
-                st.enter_context(contextlib.redirect_stdout(buf))
-                t0 = time.perf_counter()
-                rc = tcli.main([*argv, "--compute-engine", engine],
-                               device=DEVICE)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            launches = kernels.launch_counts()
-            if rc != 0:
-                raise RuntimeError(f"sequence: cli {argv} {engine} rc={rc}")
-            ops = _device_ops(tp) if traced else []
-            if ops or not any(launches.values()):
-                break
-        if out is None:
-            data = buf.getvalue().encode()
-        elif os.path.isdir(out):
-            data = _folder_bytes(out)
-        else:
-            data = _read(out)
-        busy = sum(us for us, _ in ops) / 1e3 if ops else None
-        return data, wall, clock, launches, busy, attempt + 1
+        return cli_run(kernels, poa_stage, argv, engine, out, traced)
 
     def report(label, dev, ref_engine, n_walks, extra=""):
         data, wall, clock, launches, busy, runs = dev
@@ -2822,9 +2930,7 @@ def phase_sequence(tmp: str, kernels, synth) -> None:
             raise AssertionError(f"sequence {label}: {len(clock.rows)} walks, "
                                  f"not {n_walks}")
         rest = wall - clock.s["walk"] - clock.s["poa"]
-        device = ("device_busy_ms=not_measured" if busy is None else
-                  f"device_busy_ms={busy:.6f} "
-                  f"device_idle_share={1 - busy / 1e3 / wall:.6f}")
+        device = device_share(busy, wall)
         print(
             f"[4 sequence] {label}: walks={n_walks} "
             f"rows={sum(len(r) for r in clock.rows)} wall_s={wall:.3f} "
@@ -2852,29 +2958,13 @@ def phase_sequence(tmp: str, kernels, synth) -> None:
         os.remove(outs[0])
         os.remove(outs[1])
 
-    def poa_checks(label, dev, one, ref):
-        """Every window's walk rows equal the native engine's; the native
-        run of the first window equals the device run's first window
-        (`one` selects it from the device output)."""
-        for i, (a, b) in enumerate(zip(dev[2].rows, poa_rows)):
-            if not np.array_equal(a, b):
-                raise AssertionError(f"sequence {label}: window {i} rows "
-                                     "differ from the native engine's")
-        if one != ref[0] or not one:
-            pairs = zip(one.splitlines(), ref[0].splitlines())
-            diff = next(((i, a[:200], b[:200]) for i, (a, b)
-                         in enumerate(pairs) if a != b), None)
-            raise AssertionError(f"sequence {label}: the first window's "
-                                 "output differs from the native run's "
-                                 f"({len(one)} against {len(ref[0])} bytes; "
-                                 f"first different line: {diff})")
-
     for fmt in SEQ_POA_FORMATS:
         argv = ["query", "-a", paf, *walk, "-o", fmt]
         dev = run(argv + ["-b", poa_bed], "device", traced=True)
         ref = run(argv + ["-b", one_bed], "native")
         # The device run writes its windows in order: the first is a prefix.
-        poa_checks(f"query -o {fmt}", dev, dev[0][:len(ref[0])], ref)
+        windows_equal(f"sequence query -o {fmt}", dev, poa_rows,
+                      dev[0][:len(ref[0])], ref)
         report(f"query -o {fmt}", dev, "native", SEQ_POA_WINDOWS,
                f"native_wall_s_one_window={ref[1]:.3f} ")
 
@@ -2885,7 +2975,8 @@ def phase_sequence(tmp: str, kernels, synth) -> None:
     first = [ln for ln in dev[0].decode().splitlines(keepends=True)
              if ln.startswith(("chrom\t", f"base\t{s}\t{e}\t",
                                f"#PCA\tbase:{s}-{e}\t"))]
-    poa_checks("similarity --pca", dev, "".join(first).encode(), ref)
+    windows_equal("sequence similarity --pca", dev, poa_rows,
+                  "".join(first).encode(), ref)
     n_pca = sum(ln.startswith("#PCA\t") for ln in dev[0].decode().splitlines())
     report("similarity --pca", dev, "native", SEQ_POA_WINDOWS,
            f"pca_lines={n_pca} native_wall_s_one_window={ref[1]:.3f} ")
@@ -2911,6 +3002,168 @@ def phase_sequence(tmp: str, kernels, synth) -> None:
         shutil.rmtree(outs[1])
     print(f"[4 sequence] phase_s={time.perf_counter() - t_phase:.1f}",
           flush=True)
+    return dict(fa=fa, paf=paf, windows=poa_win, rows=poa_rows,
+                cut=(gfa_fa, gfa_paf))
+
+
+# [4 graph pipeline]: the seqwish, syng-native and pggb region engines, the
+# `gfa:` post-processing stages and `.syngt` region outputs, each device run
+# walked on the card as [4 sequence]'s POA formats are.  All-vs-all
+# alignment of a 2 kb window of the full panel aligns 9,312 ordered pairs of
+# its 97 sequences on the host, one by one: the full panel runs the pggb engine
+# (alignment, seqwish and the whole chain) and the whole `gfa:` pipeline
+# over POA on the first GP_FULL_WINDOWS of [4 sequence]'s 2 kb windows; the
+# seqwish, syng-native, vcf and `gfa:sgd` over pggb runs and the `.syngt`
+# queries run on [4 sequence]'s cut panel (25 sequences, 600 pairs).
+GP_FULL_WINDOWS = 2
+GP_CUT_WINDOWS = ((1000, 3000), (3000, 5000), (5000, 7000))
+GP_PIPELINE = ("gfa:cut-n=100:sort:sgd:smooth,block-len=900:normalize:"
+               "crush:selfloops")
+GP_FULL_RUNS = (["-o", "gfa", "--gfa-engine", "pggb"], ["-o", GP_PIPELINE])
+GP_CUT_RUNS = (["-o", "gfa", "--gfa-engine", "seqwish"],
+               ["-o", "gfa", "--gfa-engine", "syng-native"],
+               ["-o", "vcf", "--gfa-engine", "seqwish"],
+               ["-o", "gfa:sgd", "--gfa-engine", "pggb"])
+GP_SYNG_QUERIES = (["-x", "-o", "bed"], ["-o", "gfa"], ["-x", "-o", "gfa"],
+                   ["-x", "-o", "fasta"], ["-x", "-o", "maf"],
+                   ["-x", "-o", "fasta-aln"], ["-x", "-o", "vcf"],
+                   ["-x", "-o", "gfa:sort"])
+# The host stages a run's wall s splits into, besides the walk and the rest.
+GP_STAGE_NAMES = ("align_induce", "poa", "cut_n", "sort", "smooth",
+                  "normalize", "crush", "selfloops")
+
+
+def graph_stages() -> list:
+    """StageClock's stages of a region graph run: pairwise alignment and
+    seqwish induction, POA, cut-n, and the chain's and the `gfa:` pipeline's
+    stages (pggb's chain calls the same functions)."""
+    from impg_tpu_torch import cli as tcli
+    from impg_tpu_torch.commands import align as align_mod
+    from impg_tpu_torch.graph import (crush, gfa, normalize, poa, seqwish,
+                                      selfloops, smooth, sortgfa)
+
+    return [(align_mod, "align_sequence_pair", "align_induce"),
+            (seqwish, "induce_graph", "align_induce"),
+            (poa, "poa_align", "poa"),
+            (tcli, "_clip_terminal_n_runs", "cut_n"),
+            (gfa, "topological_sort", "sort"),
+            (sortgfa, "sort_pipeline", "sort"),
+            (smooth, "smooth_gfa", "smooth"),
+            (smooth, "smooth_gfa_passes", "smooth"),
+            (normalize, "normalize_gfa", "normalize"),
+            (crush, "crush_gfa", "crush"),
+            (selfloops, "normalize_self_loops", "selfloops")]
+
+
+def phase_graph_pipeline(tmp: str, kernels, seq: dict) -> None:
+    """`query -o gfa|vcf --gfa-engine seqwish|syng-native|pggb`, `-o
+    gfa:<stages>` and `.syngt` region outputs through the port's CLI in
+    this process, on [4 sequence]'s panels.  Each device run has the launch
+    counts zeroed around it and must launch K-B, K-C and K-D and nothing
+    else, runs under torch.profiler (the card's busy time and idle share)
+    and has its host stages timed (`graph_stages`); every window's walk rows
+    equal the native engine's and the first window's output, run natively,
+    equals the device run's (standard error too, where crush and cut-n
+    write their lines).  The `.syngt` runs: the cut panel's syng index built
+    with `syng --compute-engine device` (K-F, equal to the host build's
+    bytes), then each query's output on it equal to that on the host-built
+    index (`-x -o bed` with sequence files: refined chain ends), no kernel
+    launched (the syng walk is the host's)."""
+    from impg_tpu_torch.host import NativeHostEngine, load_or_build
+    from impg_tpu_torch.query import engine as engine_mod
+
+    t_phase = time.perf_counter()
+    stages = graph_stages()
+    cut_fa, cut_paf = seq["cut"]
+    cut_index = load_or_build([cut_paf])
+    cut_rows = [_row_array(r) for r in engine_mod.query_transitive_bfs_many(
+        cut_index, [(cut_index.seq_index.get_id("base"), s, e)
+                    for s, e in GP_CUT_WINDOWS],
+        max_depth=2, device_engine=NativeHostEngine(cut_index))]
+    full_win = seq["windows"][:GP_FULL_WINDOWS]
+    print(f"[setup] graph pipeline: {GP_FULL_WINDOWS} of [4 sequence]'s "
+          f"2 kb windows of the full panel ({', '.join(f'base:{s}-{e}' for s, e in full_win)}) "
+          f"for the pggb engine and {GP_PIPELINE}; the cut panel "
+          f"({len(cut_index.seq_index)} sequences, {len(GP_CUT_WINDOWS)} "
+          f"windows of 2 kb) for the rest; reduced: the seqwish, "
+          f"syng-native, vcf and gfa:sgd-over-pggb runs and the .syngt "
+          f"queries on the cut panel, since all-vs-all alignment of the full "
+          f"panel aligns 9,312 pairs a window on the host", flush=True)
+
+    def run_set(tag, fa, paf, windows, rows, argv_tail):
+        walk = ["query", "-a", paf, "-x", "-m", "2", "-d", "0",
+                "--sequence-files", fa, *argv_tail]
+        beds = [_bed(os.path.join(tmp, f"gp_{tag}_{n}.bed"), w)
+                for n, w in (("all", windows), ("one", windows[:1]))]
+        dev = cli_run(kernels, stages, walk + ["-b", beds[0]], "device",
+                      traced=True)
+        ref = cli_run(kernels, stages, walk + ["-b", beds[1]], "native")
+        label = f"{tag} panel {' '.join(argv_tail)}"
+        check_launches(f"graph pipeline {label}", dev[3], WALK_PATH)
+        # Windows are written in order: the first is a prefix.
+        windows_equal(f"graph pipeline {label}", dev, rows,
+                      dev[0][:len(ref[0])], ref)
+        if not dev[2].stderr.startswith(ref[2].stderr):
+            raise AssertionError(f"graph pipeline {label}: the first "
+                                 "window's standard error differs from the "
+                                 "native run's")
+        data, wall, clock, launches, busy, runs = dev
+        staged = " ".join(f"{k}_s={clock.s[k]:.3f}" for k in GP_STAGE_NAMES)
+        rest = wall - sum(clock.s.values())
+        print(f"[4 graph pipeline] {label}: walks={len(windows)} "
+              f"rows={sum(len(r) for r in clock.rows)} wall_s={wall:.3f} "
+              f"walk_s={clock.s['walk']:.3f} {staged} rest_s={rest:.3f} "
+              f"{device_share(busy, wall)} traced_runs={runs} "
+              f"out_bytes={len(data)} stderr_lines="
+              f"{len(clock.stderr.splitlines())} "
+              f"native_wall_s_one_window={ref[1]:.3f} equal_native=True "
+              f"launches={json.dumps(launches)}", flush=True)
+
+    for tail in GP_FULL_RUNS:
+        run_set("full", seq["fa"], seq["paf"], full_win,
+                seq["rows"][:GP_FULL_WINDOWS], tail)
+    for tail in GP_CUT_RUNS:
+        run_set("cut", cut_fa, cut_paf, list(GP_CUT_WINDOWS), cut_rows,
+                tail)
+
+    # .syngt: the cut panel's syng index built on the card and on the host,
+    # then region queries over both, with sequence files.
+    syngt = {}
+    for engine in ("device", "host"):
+        prefix = os.path.join(tmp, f"gp_syng_{engine}")
+        built = cli_run(kernels, [], ["syng", "-f", cut_fa, "-o", prefix],
+                        engine, prefix + ".syngt")
+        syngt[engine] = (prefix + ".syngt", built)
+    dev_build, host_build = syngt["device"][1], syngt["host"][1]
+    check_launches("graph pipeline syng", dev_build[3], ("syncmer_scan",))
+    if dev_build[0] != host_build[0] or not dev_build[0]:
+        raise AssertionError("graph pipeline syng: the device index differs "
+                             "from the host build's")
+    s, e = GP_CUT_WINDOWS[1]
+    parts = []
+    for tail in GP_SYNG_QUERIES:
+        outs = []
+        for engine in ("device", "host"):
+            argv = ["query", "-a", syngt[engine][0], "-r", f"base:{s}-{e}",
+                    "-d", "0", "--sequence-files", cut_fa, *tail]
+            outs.append(cli_run(kernels, [], argv, engine))
+            check_launches(f"graph pipeline .syngt {' '.join(tail)}",
+                           outs[-1][3], ())
+        if outs[0][0] != outs[1][0] or len(outs[0][0].splitlines()) < 2:
+            raise AssertionError(f"graph pipeline .syngt {' '.join(tail)}: "
+                                 "output on the device-built index differs "
+                                 "from the host-built index's")
+        parts.append(f"{' '.join(tail)} {len(outs[0][0])} bytes "
+                     f"{outs[0][1]:.3f}s")
+    print(f"[4 graph pipeline] .syngt base:{s}-{e} with sequence files: "
+          f"syng --compute-engine device {dev_build[1]:.3f}s against host "
+          f"{host_build[1]:.3f}s, {len(dev_build[0])} bytes equal, launches "
+          f"{json.dumps(dev_build[3])}; queries on the device-built index "
+          f"equal to the host-built index's, no kernel launched: "
+          f"{'; '.join(parts)}", flush=True)
+    print(f"[4 graph pipeline] phase_s={time.perf_counter() - t_phase:.1f}",
+          flush=True)
+
 
 
 def main() -> int:
@@ -2950,6 +3203,14 @@ def main() -> int:
     t0 = time.perf_counter()
     if native.load() is None:
         raise AssertionError("the port's native host library did not load")
+    # The aligner and seqwish's union-find and emitter: without them the
+    # region graphs would fall back to Python.
+    absent = [sym for sym in ("impg_align_pair", "impg_align_prefix",
+                              "uf_union_runs", "uf_find_all",
+                              "impg_seqwish_emit")
+              if not hasattr(native.load(), sym)]
+    if absent:
+        raise AssertionError(f"the native host library lacks {absent}")
     print(f"[setup] native host library "
           f"{os.path.relpath(native._SO_PATH, REPO)} loaded in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
@@ -3035,7 +3296,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="impg_smoke_")
     try:
-        phase_sequence(tmp, kernels, synth)
+        seq = phase_sequence(tmp, kernels, synth)
+        phase_graph_pipeline(tmp, kernels, seq)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     tmp = tempfile.mkdtemp(prefix="impg_smoke_")

@@ -28,19 +28,22 @@ candidate; for `similarity -x`, one a target):
 
 On the host, as in impg_tpu: `map -a INDEX -o gaf|paf|proj` (syng/map.py),
 `map --graph GFA -o graph-pack|graph-pack-tsv|gaf|paf`, and `query -a
-X.syngt -o bed|bedpe`, raw or chained with `-x` (syng/transitive.py); the
-sequence stages of `query -o fasta|fasta+paf|gfa|maf|fasta-aln|vcf`,
-`partition -o fasta|gfa|maf|vcf` and `similarity` after their walks
-(sequences through io/fasta.py's UnifiedSequenceIndex, graphs and MSAs
-through the C++ POA of graph/poa.py).
+X.syngt`, raw or chained with `-x` (syng/transitive.py; with sequence files
+the chain ends refine by native ends-free alignment), to bed, bedpe and
+every region format; the sequence stages of `query -o
+fasta|fasta+paf|gfa|maf|fasta-aln|vcf`, `partition -o fasta|gfa|maf|vcf` and
+`similarity` after their walks (sequences through io/fasta.py's
+UnifiedSequenceIndex, graphs and MSAs through the C++ POA of graph/poa.py);
+the region graph engines `--gfa-engine seqwish|syng-native|pggb` of `-o
+gfa|vcf` (all-vs-all alignment, seqwish induction and pggb's chain,
+graph/region.py); and the `-o gfa:<pipeline>` stages after any engine
+(`cut-n`, `sort`, `sgd`, `smooth`, `normalize`, `crush`, `selfloops`).
 
 Not yet ported, and refused with exit status 2 before any input is read:
 every other subcommand of impg_tpu.cli; the regional-syng (`gbwt`) output
-and the `gfa:<pipeline>` outputs of `query`; `--gfa-engine seqwish|pggb|
-syng-native` for `-o gfa|vcf`; every output of a `.syngt` query but bed
-and bedpe, and sequence files with a `.syngt` query (chain-end
-refinement); `.syngt` inputs of `index`, `stats`, `partition`, `refine` and
-`similarity`; `.1aln` and `.tpa` alignment inputs; `--compute-engine mesh`.
+of `query`, of a PAF or a `.syngt` index; `.syngt` inputs of `index`,
+`stats`, `partition`, `refine` and `similarity`; `.1aln` and `.tpa`
+alignment inputs; `--compute-engine mesh`.
 
     python -m impg_tpu_torch.cli query -a aln.paf -r 'chr1:0-50000' -x \\
         -d 100 -o bed --compute-engine device
@@ -66,18 +69,17 @@ UNPORTED_COMMANDS = (
     "syng-repair", "export-1aln", "export-tpa", "agz", "syng2gfa",
     "crush", "gfa2vcf", "graph-report",
 )
-# Output formats of impg_tpu.cli's `query` that the port has not ported
-# (`gfa:<pipeline>` included).
+# Output formats of impg_tpu.cli's `query` that the port has not ported.
 UNPORTED_FORMATS = ("gbwt",)
-# Sequence-backed region formats of `query` (POA unless -o fasta).
+# Sequence-backed region formats of `query` (`gfa:<pipeline>` is gfa).
 REGION_FORMATS = ("fasta", "gfa", "maf", "fasta-aln", "vcf")
-# GFA engines of impg_tpu.cli's `--gfa-engine` that the port has not ported
-# (seqwish, its pggb chain and the syng graph); POA is.
-UNPORTED_GFA_ENGINES = ("seqwish", "pggb", "syng-native")
+# Post-processing stages of `-o gfa:<pipeline>` on the PAF-index route.
+GFA_STAGES = ("sort", "sgd", "smooth", "normalize", "crush", "selfloops",
+              "self-loops", "cut-n")
 UNPORTED_INPUTS = (".syngt", ".1aln", ".tpa")
-# Output formats of a `.syngt` query in impg_tpu.cli that need the sequence
-# and graph layers (`gfa:<pipeline>` included); bed and bedpe are ported.
-UNPORTED_SYNG_FORMATS = ("fasta", "gfa", "maf", "fasta-aln", "vcf", "gbwt")
+# Output formats of a `.syngt` query in impg_tpu.cli that the port has not
+# ported (the regional syng index).
+UNPORTED_SYNG_FORMATS = ("gbwt",)
 # Global options of the parser that take a value (for finding the command).
 _VALUE_OPTS = ("-v", "--verbosity", "-t", "--threads")
 
@@ -181,11 +183,77 @@ def _sequence_index(args):
     return UnifiedSequenceIndex.from_files(_comma_list(args.sequence_files))
 
 
-def _emit_region_format(index, results, out, fmt, args, seq_idx, target_id,
-                        merge_distance) -> None:
-    """Sequence-backed region outputs (fasta/gfa/maf/fasta-aln/vcf), as
-    impg_tpu.cli._emit_region_format writes them for the POA engine and no
-    `gfa:` stages (main() refuses the rest)."""
+def _clip_terminal_n_runs(index, results, seq_idx, min_run: int):
+    """Clip each result interval's terminal N-runs of >= min_run bases
+    against the real sequence; drop intervals left empty
+    (graph.rs:69 terminal_n_clip_span / :93 clip_intervals_terminal_n_runs).
+    """
+    import dataclasses
+
+    def is_n(b):
+        return b in (78, 110)  # 'N' / 'n'
+
+    out = []
+    kept_bp = 0
+    before_bp = 0
+    for r in results:
+        lo, hi = (
+            (r.q_first, r.q_last) if r.q_first <= r.q_last
+            else (r.q_last, r.q_first)
+        )
+        before_bp += hi - lo
+        if hi <= lo:
+            continue
+        if min_run <= 0:
+            out.append(r)
+            kept_bp += hi - lo
+            continue
+        name = index.seq_index.get_name(r.q_id)
+        seq = seq_idx.fetch_sequence(name, lo, hi)
+        pre = 0
+        while pre < len(seq) and is_n(seq[pre]):
+            pre += 1
+        suf = 0
+        while suf < len(seq) - pre and is_n(seq[len(seq) - 1 - suf]):
+            suf += 1
+        start = lo + (pre if pre >= min_run else 0)
+        end = hi - (suf if suf >= min_run else 0)
+        if start >= end:
+            continue
+        kept_bp += end - start
+        if (start, end) == (lo, hi):
+            out.append(r)
+        elif r.q_first <= r.q_last:
+            out.append(dataclasses.replace(r, q_first=start, q_last=end))
+        else:
+            out.append(dataclasses.replace(r, q_first=end, q_last=start))
+    print(
+        f"terminal N clipping: min-run={min_run} kept {len(out)} / "
+        f"{len(results)} interval(s), {before_bp} -> {kept_bp} bp",
+        file=sys.stderr,
+    )
+    return out
+
+
+def _gfa_pipeline_stages(fmt: str):
+    """The stages after `gfa` of an `-o gfa:<pipeline>` spec, or None (the
+    error printed) when the spec does not parse."""
+    from impg_tpu_torch.graph.pipeline import GraphPipelineSpec
+
+    try:
+        return GraphPipelineSpec.parse(fmt).stages[1:]
+    except ValueError as e:
+        print(f"error: invalid -o pipeline spec: {e}", file=sys.stderr)
+        return None
+
+
+def _emit_region_format(
+    index, results, out, fmt, args, seq_idx, gfa_stages, target_id,
+    merge_distance,
+) -> None:
+    """Sequence-backed region outputs (fasta/gfa/maf/fasta-aln/vcf) shared
+    by the PAF-index and syng query routes (the reference routes both
+    through the same realignment path, main.rs:6668)."""
     from impg_tpu_torch.query import outputs
 
     if fmt == "fasta":
@@ -207,21 +275,80 @@ def _emit_region_format(index, results, out, fmt, args, seq_idx, target_id,
     scoring = tuple(
         int(x) for x in args.poa_scoring.replace("/", ",").split(",")
     )
+    # cut-n=N is a PRE-engine stage: clip each gathered interval's terminal
+    # N-runs (>= N bases) against the real sequence before the GFA engine
+    # runs (lib.rs:963-979 terminal_n_clip; graph.rs:69 terminal_n_clip_span).
+    cut_stage = next((s for s in gfa_stages if s.name == "cut-n"), None)
+    if cut_stage is not None:
+        min_run = int(cut_stage.param("min-run") or cut_stage.value or 100)
+        results = _clip_terminal_n_runs(
+            index, results, seq_idx, min_run
+        )
+        gfa_stages = [s for s in gfa_stages if s.name != "cut-n"]
     # gfa/maf merge strands by default; fasta-aln keeps them separate
     # (main.rs:4395-4399).
     ms = not (fmt == "fasta-aln" or args.consider_strandness)
     merge_mod.merge_query_adjusted_intervals(results, merge_distance, ms)
-    gen = {
-        "gfa": region_mod.generate_gfa,
-        "vcf": region_mod.generate_gfa,
-        "maf": region_mod.generate_maf,
-        "fasta-aln": region_mod.generate_fasta_aln,
-    }[fmt]
-    text = gen(index, results, seq_idx, scoring)
+    build_fmt = "gfa" if fmt == "vcf" else fmt
+    if build_fmt == "gfa" and args.gfa_engine in (
+        "seqwish", "pggb", "syng-native"
+    ):
+        text = region_mod.generate_gfa_seqwish(
+            index, results, seq_idx, engine=args.gfa_engine,
+        )
+    else:
+        gen = {
+            "gfa": region_mod.generate_gfa,
+            "maf": region_mod.generate_maf,
+            "fasta-aln": region_mod.generate_fasta_aln,
+        }[build_fmt]
+        text = gen(index, results, seq_idx, scoring)
     if fmt == "vcf":
         from impg_tpu_torch.graph import vcf as vcf_mod
 
         text = vcf_mod.gfa_to_vcf(text, index.seq_index.get_name(target_id))
+    if gfa_stages:
+        from impg_tpu_torch.graph import gfa as gfa_mod
+
+        for stage in gfa_stages:
+            if stage.name == "sort":
+                text = gfa_mod.topological_sort(
+                    gfa_mod.Gfa.parse(text)
+                ).write()
+            elif stage.name == "sgd":
+                from impg_tpu_torch.graph import sortgfa as sortgfa_mod
+
+                text = sortgfa_mod.sort_pipeline(
+                    text, stage.param("pipeline") or "Ygs"
+                )
+            elif stage.name == "smooth":
+                from impg_tpu_torch.graph import smooth as smooth_mod
+
+                bl = int(stage.param("block-len") or 1100)
+                text = smooth_mod.smooth_gfa(
+                    text, bl,
+                    block_source=stage.param("block-source") or "fixed",
+                )
+            elif stage.name == "normalize":
+                from impg_tpu_torch.graph import normalize as norm_mod
+
+                text = norm_mod.normalize_gfa(text)
+            elif stage.name == "crush":
+                from impg_tpu_torch.graph import crush as crush_mod
+
+                max_span = int(stage.param("max-span") or 10_000)
+                text, cst = crush_mod.crush_gfa(text, max_span=max_span)
+                print(
+                    f"crush: {cst.bubbles_resolved} resolved across "
+                    f"{cst.rounds} rounds, {cst.bp_before} -> "
+                    f"{cst.bp_after} bp",
+                    file=sys.stderr,
+                )
+            elif stage.name in ("selfloops", "self-loops"):
+                from impg_tpu_torch.graph import selfloops as sl_mod
+
+                max_unit = int(stage.param("max-unit-len") or 0)
+                text, _sl = sl_mod.normalize_self_loops(text, max_unit)
     out.write(text)
 
 
@@ -348,19 +475,35 @@ def _syng_input(files: list[str]) -> bool:
 def _syng_query(args, merge_distance: int) -> int:
     """Query routing for `-a <prefix>.syngt` (alignment-free backend), on
     the host as in impg_tpu.cli: raw homologous intervals, or with `-x` the
-    chained multihop walk; bed and bedpe (main() refused the rest)."""
+    chained multihop walk, whose chain ends refine by native ends-free
+    alignment when sequences are given; bed, bedpe and the region formats
+    (`gfa:<pipeline>` included; main() refused gbwt)."""
     from impg_tpu_torch.query import engine as engine_mod
     from impg_tpu_torch.query import outputs
     from impg_tpu_torch.syng.index import SyngIndex
 
     fmt = args.output_format
-    if fmt not in ("bed", "bedpe"):
+    gfa_stages = []
+    if fmt.startswith("gfa:"):
+        gfa_stages = _gfa_pipeline_stages(fmt)
+        if gfa_stages is None:
+            return 2
+        fmt = "gfa"
+    if fmt not in ("bed", "bedpe") + REGION_FORMATS:
         print(
             "error: syng index queries support bed, bedpe, gfa, vcf, "
             "fasta, and gbwt output (main.rs:6602 contract)",
             file=sys.stderr,
         )
         return 2
+    seq_idx = None
+    if fmt in REGION_FORMATS:
+        # Realignment-backed outputs need the sequences (main.rs:6668).
+        if not args.sequence_files:
+            print(f"error: -o {fmt} requires --sequence-files",
+                  file=sys.stderr)
+            return 2
+        seq_idx = _sequence_index(args)
     syng = SyngIndex.load(_alignment_files(args)[0])
     if args.target_bed:
         targets = bed_mod.parse_bed_file(args.target_bed)
@@ -377,9 +520,13 @@ def _syng_query(args, merge_distance: int) -> int:
                 )
                 return 1
             if args.transitive:
-                # Chained multihop homology walk (syng_transitive.rs role).
+                # Chained multihop homology walk (syng_transitive.rs role);
+                # with --sequence-files, chain ends refine by native
+                # ends-free alignment (refine_ends_only role).
                 from impg_tpu_torch.syng import transitive as syng_transitive
 
+                if seq_idx is None and args.sequence_files:
+                    seq_idx = _sequence_index(args)
                 rows = syng_transitive.query_transitive(
                     syng, target_name, start, end,
                     max_depth=args.max_depth,
@@ -387,6 +534,7 @@ def _syng_query(args, merge_distance: int) -> int:
                     min_distance_between_ranges=(
                         args.min_distance_between_ranges
                     ),
+                    seq_idx=seq_idx,
                 )
             else:
                 intervals = syng.query_region(target_name, start, end)
@@ -416,6 +564,11 @@ def _syng_query(args, merge_distance: int) -> int:
                 outputs.write_bed(
                     syng.seq_index, rows, out, name, merge_distance,
                     not args.consider_strandness,
+                )
+            elif fmt in REGION_FORMATS:
+                _emit_region_format(
+                    syng, rows, out, fmt, args, seq_idx, gfa_stages, qid,
+                    merge_distance,
                 )
             else:
                 rows.pop(0)
@@ -453,12 +606,24 @@ def cmd_query(args, device: torch.device) -> int:
         return _syng_query(args, merge_distance)
 
     fmt = args.output_format
-    if fmt in UNPORTED_FORMATS or fmt.startswith("gfa:"):
+    if fmt in UNPORTED_FORMATS:
         _fail(f"-o {fmt} is not yet ported to impg_tpu_torch (ported: bed, "
-              "bedpe, paf, fasta, fasta+paf, gfa, maf, fasta-aln, vcf)")
-    if fmt in ("gfa", "vcf") and args.gfa_engine in UNPORTED_GFA_ENGINES:
-        _fail(f"--gfa-engine {args.gfa_engine} is not yet ported to "
-              "impg_tpu_torch (ported: poa)")
+              "bedpe, paf, fasta, fasta+paf, gfa, gfa:<pipeline>, maf, "
+              "fasta-aln, vcf)")
+    gfa_stages = []
+    if fmt.startswith("gfa:"):
+        gfa_stages = _gfa_pipeline_stages(fmt)
+        if gfa_stages is None:
+            return 2
+        fmt = "gfa"
+        for stage in gfa_stages:
+            if stage.name not in GFA_STAGES:
+                print(
+                    f"error: unsupported gfa pipeline stage '{stage.name}' "
+                    f"(supported: {', '.join(sorted(GFA_STAGES))})",
+                    file=sys.stderr,
+                )
+                return 2
     valid_formats = {"bed", "bedpe", "paf", "fasta+paf", *REGION_FORMATS}
     if fmt not in valid_formats:
         print(
@@ -654,8 +819,8 @@ def cmd_query(args, device: torch.device) -> int:
                     )
                 else:
                     _emit_region_format(
-                        index, results, out, fmt, args, seq_idx, target_id,
-                        merge_distance,
+                        index, results, out, fmt, args, seq_idx, gfa_stages,
+                        target_id, merge_distance,
                     )
     finally:
         if out is not sys.stdout:
@@ -1442,15 +1607,16 @@ def build_parser() -> argparse.ArgumentParser:
         "--output-format",
         default="bed",
         help="bed | bedpe | paf | fasta | fasta+paf | gfa | maf | "
-        "fasta-aln | vcf (bed | bedpe for a .syngt index; gbwt and gfa "
-        "pipeline specs are not yet ported)",
+        "fasta-aln | vcf | gfa:<stage>[,key=value...]:... (stages: cut-n, "
+        "sort, sgd, smooth, normalize, crush, selfloops; no paf or "
+        "fasta+paf for a .syngt index; gbwt is not yet ported)",
     )
     p_query.add_argument("--poa-scoring", default="1,4,6,2,26,1")
     p_query.add_argument(
         "--gfa-engine", choices=["poa", "seqwish", "pggb", "syng-native"],
         default="poa",
-        help="Graph engine for -o gfa|vcf (poa; the others are not yet "
-        "ported)",
+        help="Graph engine for -o gfa|vcf (pggb = seqwish + the automatic "
+        "sort/smooth/normalize chain, lib.rs:1015-1064)",
     )
     p_query.add_argument(
         "--reverse-complement",
@@ -1764,18 +1930,15 @@ def main(argv=None, device=None) -> int:
                   if isinstance(getattr(args, "alignment", None), list)
                   else [])
     if args.func is cmd_query and _syng_input(alignments):
-        fmt = args.output_format
-        if (fmt in UNPORTED_SYNG_FORMATS or fmt.startswith("gfa:")
-                or args.sequence_files or args.sequence_list):
-            _fail(f"a .syngt query with -o {fmt} or sequence files (chain-end "
-                  "refinement) is not yet ported to impg_tpu_torch (ported: "
-                  "-o bed, bedpe, raw and -x)")
+        if args.output_format in UNPORTED_SYNG_FORMATS:
+            _fail(f"a .syngt query with -o {args.output_format} is not yet "
+                  "ported to impg_tpu_torch (ported: -o bed, bedpe, fasta, "
+                  "gfa, gfa:<pipeline>, maf, fasta-aln, vcf)")
         alignments = []
     for f in alignments:
         if f.endswith(UNPORTED_INPUTS):
             _fail(f"{f}: {os.path.splitext(f)[1]} input is not yet ported to "
-                  "impg_tpu_torch (ported: PAF, PAF.gz; .syngt for query -o "
-                  "bed|bedpe)")
+                  "impg_tpu_torch (ported: PAF, PAF.gz; .syngt for query)")
     # --sequence-list: file of sequence paths, normalized into
     # args.sequence_files so every downstream path sees one flag
     # (SequenceOpts::resolve_sequence_files, main.rs:4126).

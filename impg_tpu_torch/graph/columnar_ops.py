@@ -7,7 +7,11 @@ the spelling helpers `path_spellings` / `_spell_flat`.  The blob rewrites,
 the topological sort and the text assembly run through the port's copies of
 native/spellc.cpp and gfa_parser.cpp (io/native.py), with no Python
 fallback: the sort path needs the native library, as its tokenizer does.
-The validation, link-regeneration and crush helpers belong to later slices.
+The spelling validation of crush, selfloops and normalize
+(`validate_spellings`, `path_spellings_of_text`, `validate_text_spellings`)
+and crush's link regeneration (`links_from_paths`) are copies too; the
+text-level helpers return None without the native tokenizer, as impg_tpu's
+do, and their callers fall back to the dict model.
 """
 
 from __future__ import annotations
@@ -48,6 +52,81 @@ def _spell_flat(gc: GfaColumns):
         gc.seq_blob, gc.seq_offsets, rows, gc.step_rev, bp_off
     )
     return out, bp_off[gc.path_off]
+
+
+def validate_spellings(gc: GfaColumns, expected: dict[str, bytes]) -> bool:
+    """True when every path spells exactly its `expected` bytes —
+    zero-copy comparison against the flat spelled buffer (the crush /
+    selfloops / normalize per-round validation contract)."""
+    if gc.n_paths != len(expected):
+        return False
+    out, path_bp = _spell_flat(gc)
+    # Per-path comparison, deliberately: path-sized tobytes() copies stay
+    # cache-resident and bytes == bytes is one memcmp, where one flat
+    # join would fault in fresh multi-MB buffers and a memoryview slice
+    # compare has no memcmp fast path.
+    for p, name in enumerate(gc.path_names):
+        want = expected.get(name)
+        if want is None:
+            return False
+        lo, hi = int(path_bp[p]), int(path_bp[p + 1])
+        if hi - lo != len(want):
+            return False
+        if out[lo:hi].tobytes() != want:
+            return False
+    return True
+
+
+def path_spellings_of_text(text: str) -> dict[str, bytes] | None:
+    """Columnar spellings straight from GFA text; None when the native
+    tokenizer is unavailable (callers fall back to the dict model)."""
+    try:
+        from impg_tpu_torch.graph.gfa_columns import parse_gfa_columns
+
+        gc = parse_gfa_columns(text)
+    except ValueError:
+        raise
+    except Exception:
+        return None
+    return path_spellings(gc)
+
+
+def validate_text_spellings(text: str, expected: dict[str, bytes]):
+    """Columnar spelling validation straight from GFA text; None when the
+    native tokenizer is unavailable (callers fall back to dict spelling).
+    """
+    try:
+        from impg_tpu_torch.graph.gfa_columns import parse_gfa_columns
+
+        gc = parse_gfa_columns(text)
+    except ValueError:
+        raise
+    except Exception:
+        return None
+    return validate_spellings(gc, expected)
+
+
+def links_from_paths(gc: GfaColumns) -> np.ndarray:
+    """Unique (a_idx, a_rev, b_idx, b_rev) adjacencies over all path
+    steps, packed per row into uint64 (name idx < 2^31), sorted."""
+    n_steps = gc.step_name_idx.size
+    if n_steps == 0:
+        return np.zeros(0, np.uint64)
+    keep = np.ones(n_steps, bool)
+    keep[gc.path_off[1:] - 1] = False  # last step of each path
+    keep[-1] = False
+    # uint64 packing: bit 63..33 = a (31 bits), 32 = ar, 31..1 = b, 0 = br.
+    # int64 would flip sign at a >= 2^30 and corrupt the arithmetic-shift
+    # unpack, so the whole pack/unpack path stays unsigned.
+    a = gc.step_name_idx[:-1][keep[:-1]].astype(np.uint64)
+    ar = gc.step_rev[:-1][keep[:-1]].astype(np.uint64)
+    b = gc.step_name_idx[1:][keep[:-1]].astype(np.uint64)
+    br = gc.step_rev[1:][keep[:-1]].astype(np.uint64)
+    packed = (
+        (a << np.uint64(33)) | (ar << np.uint64(32))
+        | (b << np.uint64(1)) | br
+    )
+    return np.unique(packed)
 
 
 def groom_columns(gc: GfaColumns) -> GfaColumns:

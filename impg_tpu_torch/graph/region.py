@@ -1,8 +1,12 @@
 """Region-level POA outputs: GFA, MAF, aligned FASTA.
 
-The port's copy of impg_tpu/graph/region.py without `generate_gfa_seqwish`
-(the seqwish, pggb and syng-native GFA engines are not yet ported; the
-port's CLI refuses them).  tests/test_torch_poa.py holds the outputs equal.
+The port's copy of impg_tpu/graph/region.py: the POA engine
+(`generate_gfa`, `generate_maf`, `generate_fasta_aln`; tests/test_torch_poa.py
+holds them equal) and `generate_gfa_seqwish`, the seqwish and syng-native
+engines and the pggb chain on top (tests/test_torch_seqwish.py).  All of it
+runs on the host after the walk: sequences, all-vs-all alignment over a host
+syng index of the region, seqwish induction, the chain's sort, smooth and
+normalize.
 
 Functional parity with the reference's POA output path
 (graph.rs:158-483 generate_gfa/maf/fasta_aln_from_intervals): query result
@@ -80,6 +84,60 @@ def _trim_bounds(msa: list[str]) -> tuple[int, int]:
     if right < left:
         return 0, n
     return left, right
+
+
+def generate_gfa_seqwish(
+    index: ImpgIndex,
+    rows: list[Row],
+    seq_idx: UnifiedSequenceIndex,
+    scoring=None,
+    engine: str = "seqwish",
+    skip_normalize: bool = False,
+) -> str:
+    """Seqwish-engine region GFA: extract region sequences, all-vs-all align
+    them natively, induce the variation graph (reference: GfaEngine::Seqwish,
+    graph.rs:1058 -> commands/graph.rs build_graph).  engine="pggb" runs
+    the reference's full automatic chain on top — line-sort, Ygs, smooth,
+    gfaffix normalize, sort (lib.rs:1015-1064; graph/pggb.py) — with the
+    normalize+final-sort skipped when the caller laces partitions
+    (skip_normalize, lib.rs:1060)."""
+    from impg_tpu_torch.commands import align as align_mod
+    from impg_tpu_torch.graph import seqwish as seqwish_mod
+    from impg_tpu_torch.syng.index import SyngIndex
+
+    pairs = prepare_sequences(index, rows, seq_idx)
+    seqs = {meta.path_name(): seq for seq, meta in pairs}
+    syng = SyngIndex.build(list(seqs.items()))
+    paf_rows = []
+    names = list(seqs)
+    for q in names:
+        for t in names:
+            if q != t:
+                paf_rows.extend(
+                    align_mod.align_sequence_pair(syng, seqs, q, t)
+                )
+    gfa = seqwish_mod.induce_graph(seqs, paf_rows)
+    # induce_graph names paths `key:0-len`; the keys already carry region
+    # coordinates, so strip the redundant suffix.
+    fixed = []
+    for line in gfa.splitlines():
+        if line.startswith("P\t"):
+            parts = line.split("\t")
+            name = parts[1]
+            base, _, suffix = name.rpartition(":")
+            if suffix.startswith("0-") and base in seqs:
+                parts[1] = base
+            fixed.append("\t".join(parts))
+        else:
+            fixed.append(line)
+    text = "\n".join(fixed) + "\n"
+    if engine == "pggb":
+        from impg_tpu_torch.graph.pggb import pggb_chain
+
+        text = pggb_chain(
+            text, scoring=scoring, skip_normalize=skip_normalize
+        )
+    return text
 
 
 def generate_maf(

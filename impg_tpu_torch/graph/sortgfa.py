@@ -10,7 +10,8 @@ a CUDA device, its plain twin on the CPU), called with the same arguments.
 impg_tpu's dict-model pipeline (`path_sgd_order`, `groom`, `_topo_priority`)
 runs there only when its native library is missing; here the native library
 is required (graph/gfa_columns.parse_gfa_columns raises without it), so that
-pipeline is not copied.  Differences from the copy, each with the same
+pipeline is not copied.  Its `groom` is, for the dict-model fallbacks of
+graph/normalize.py and graph/crush.py.  Differences from the copy, each with the same
 result:
 
   * a step that names no S line has node id -1 (sgd_order_columns); numpy's
@@ -180,6 +181,45 @@ def sgd_inputs(gc):
         (int(po[p]), int(po[p + 1])) for p in range(gc.n_paths)
     ]
     return step_node, step_pos, bounds
+
+
+def groom(gfa):
+    """Flip segments that are majority-reverse across path steps so most
+    steps read forward (gfasort 'g' role).  Path spellings are preserved
+    exactly: a flipped segment stores its reverse complement and every
+    step/link orientation touching it inverts."""
+    from impg_tpu_torch.graph.gfa import Gfa
+    from impg_tpu_torch.io.fasta import reverse_complement
+
+    rev_votes: dict[str, int] = {}
+    fwd_votes: dict[str, int] = {}
+    for _, steps in gfa.paths:
+        for sid, rev in steps:
+            if rev:
+                rev_votes[sid] = rev_votes.get(sid, 0) + 1
+            else:
+                fwd_votes[sid] = fwd_votes.get(sid, 0) + 1
+    flip = {
+        sid
+        for sid in gfa.segments
+        if rev_votes.get(sid, 0) > fwd_votes.get(sid, 0)
+    }
+    if not flip:
+        return gfa
+    out = Gfa(header=gfa.header, walk_names=set(gfa.walk_names))
+    for sid, seq in gfa.segments.items():
+        out.segments[sid] = (
+            reverse_complement(seq.encode()).decode() if sid in flip else seq
+        )
+    out.links = [
+        (a, ar ^ (a in flip), b, br ^ (b in flip))
+        for a, ar, b, br in gfa.links
+    ]
+    out.paths = [
+        (name, [(sid, rev ^ (sid in flip)) for sid, rev in steps])
+        for name, steps in gfa.paths
+    ]
+    return out
 
 
 def sgd_order_columns(gc, backend: str = "auto", device=None) -> np.ndarray:

@@ -29,7 +29,8 @@ from typing import Optional
 import numpy as np
 
 _SRC_NAMES = ("paf_parser.cpp", "visited.cpp", "host_engine.cpp",
-              "syncmer.cpp", "gfa_parser.cpp", "spellc.cpp", "poa.cpp")
+              "syncmer.cpp", "gfa_parser.cpp", "spellc.cpp", "poa.cpp",
+              "align.cpp", "seqwish_uf.cpp", "seqwish_emit.cpp")
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _NATIVE_DIR = os.path.join(_PKG_DIR, "native")
 _BUILD_DIR = os.path.join(_PKG_DIR, "build")
@@ -229,6 +230,7 @@ def load():
     ]
 
     _bind_gfa(lib)
+    _bind_align_seqwish(lib)
     _lib = lib
     return _lib
 
@@ -311,6 +313,45 @@ def _bind_gfa(lib) -> None:
         u8p,              # out
         ctypes.c_int32,   # n_threads
     ]
+
+
+def _bind_align_seqwish(lib) -> None:
+    """ctypes signatures of the pairwise aligner (align.cpp) and of seqwish's
+    union-find and GFA emitter (seqwish_uf.cpp, seqwish_emit.cpp)."""
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    lib.uf_create.restype = ctypes.c_void_p
+    lib.uf_create.argtypes = [ctypes.c_int64]
+    lib.uf_destroy.restype = None
+    lib.uf_destroy.argtypes = [ctypes.c_void_p]
+    lib.uf_union_runs.restype = None
+    lib.uf_union_runs.argtypes = [
+        ctypes.c_void_p, i64p, i8p, i64p, i64p, u8p, ctypes.c_int64,
+    ]
+    lib.uf_find_all.restype = None
+    lib.uf_find_all.argtypes = [ctypes.c_void_p, i64p, u8p, ctypes.c_int64]
+    lib.uf_union_pairs.restype = None
+    lib.uf_union_pairs.argtypes = [ctypes.c_void_p, i64p, i64p,
+                                   ctypes.c_int64]
+    lib.impg_seqwish_emit.restype = ctypes.c_void_p
+    lib.impg_seqwish_emit.argtypes = [
+        ctypes.c_int64, i64p, i64p, u8p, ctypes.c_int64, u8p,
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.impg_seqwish_emit_free.restype = None
+    lib.impg_seqwish_emit_free.argtypes = [ctypes.c_void_p]
+    for name in ("impg_align_pair", "impg_align_wfa", "impg_align_prefix"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,  # query, its length
+            ctypes.c_char_p, ctypes.c_int64,  # target, its length
+            ctypes.c_int, ctypes.c_int,       # match, mismatch
+            ctypes.c_int, ctypes.c_int,       # gap open, gap extend
+            ctypes.POINTER(ctypes.c_uint32),  # CIGAR runs out
+            ctypes.c_int64,                   # their capacity
+        ]
 
 
 def _as_array(ptr, n, dtype):

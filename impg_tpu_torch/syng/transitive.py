@@ -4,13 +4,14 @@ limits -> padded end extension -> multihop BFS with visited-range
 bookkeeping matching the alignment-backed transitive walk).
 
 The port's copy of impg_tpu/syng/transitive.py (tests/test_torch_syng_map.py
-holds the two equal), without `refine_chain_ends`: chain ends extend by the
+and tests/test_torch_syng_refine.py hold the two equal).  The reference
+delegates chaining to SweepGA's plane-sweep scaffold filter and refines chain
+ends with BiWFA; here `_sweep_chains_group` plays the SweepGA role
+(gap-bounded monotone multi-chain assignment + two-axis ManyToMany plane
+sweep) and `refine_chain_ends` plays the BiWFA role with the port's native
+ends-free aligner (ops/align.py); without sequences, ends extend by the
 bounded padding the reference falls back to below its identity floor
-(syng_transitive.rs:44 MIN_ALIGNMENT_IDENTITY fallback), and a walk given
-sequences to refine them with raises until the native aligner is ported.
-`_sweep_chains_group` plays the role of SweepGA's plane-sweep scaffold
-filter (gap-bounded monotone multi-chain assignment + two-axis ManyToMany
-plane sweep).
+(syng_transitive.rs:44 MIN_ALIGNMENT_IDENTITY fallback).
 """
 
 from __future__ import annotations
@@ -253,6 +254,112 @@ def _entry(
     return r
 
 
+def refine_chain_ends(
+    syng: SyngIndex,
+    chains: list[SyngChain],
+    seq_idx,
+    qname: str,
+    start: int,
+    end: int,
+    extend_budget: int = 1_000,
+    min_alignment_identity: float = 0.3,
+) -> None:
+    """Ends-only boundary refinement (syng_transitive.rs:485
+    refine_ends_only): per chain, two ends-free extensions with the native
+    aligner — from the first anchor backward to the query region start and
+    from the last anchor forward to the region end — replace the padded
+    linear extrapolation of the chain's target bounds.  The chained
+    interior is trusted (every interior anchor is a syncmer match).
+    Refinements whose matched fraction falls below
+    `min_alignment_identity` keep the padded bounds (the reference's
+    syncmer-noise fallback).  Gaps under 64 bp skip alignment — linear
+    drift over that span is negligible (SKIP_BIWFA_MIN_GAP)."""
+    from impg_tpu_torch.io.fasta import reverse_complement
+    from impg_tpu_torch.ops.align import align_extend
+
+    SKIP_MIN_GAP = 64
+    k = syng.syncmer_len
+    qseq = seq_idx.fetch_sequence(qname, start, end)
+
+    def window(gap: int) -> int:
+        slop = min(max(gap // 20, 32), extend_budget)
+        return max(min(gap + slop, 2 * extend_budget), k)
+
+    for c in chains:
+        if c.first_q < 0:
+            continue
+        t_len = syng.seq_index.get_len_from_id(
+            syng.seq_index.get_id(c.genome)
+        )
+        # --- query-left gap: region start .. first anchor ---
+        gap_l = c.first_q - start
+        if gap_l >= SKIP_MIN_GAP:
+            w = window(gap_l)
+            # The query segment is bounded like the target window: only
+            # the portion ADJACENT to the anchor aligns (an unbounded gap
+            # would overflow the native aligner's cell cap, and identity
+            # over a segment longer than the window is unsatisfiable).
+            seg_len = min(gap_l, w)
+            q_off = c.first_q - start
+            q_seg = qseq[q_off - seg_len : q_off]
+            if c.strand == "+":
+                lo = max(c.first_t - w, 0)
+                tgt = seq_idx.fetch_sequence(c.genome, lo, c.first_t)
+                consumed, matches = align_extend(
+                    q_seg[::-1], tgt[::-1]
+                )
+                if matches / max(len(q_seg), 1) >= min_alignment_identity:
+                    c.t_start = c.first_t - consumed
+                    c.q_start = c.first_q - seg_len
+            else:
+                hi = min(c.first_t + k + w, t_len)
+                tgt = seq_idx.fetch_sequence(c.genome, c.first_t + k, hi)
+                consumed, matches = align_extend(
+                    reverse_complement(q_seg), tgt
+                )
+                if matches / max(len(q_seg), 1) >= min_alignment_identity:
+                    c.t_end = c.first_t + k + consumed
+                    c.q_start = c.first_q - seg_len
+        # --- query-right gap: last anchor end .. region end ---
+        gap_r = end - (c.last_q + k)
+        if gap_r >= SKIP_MIN_GAP:
+            w = window(gap_r)
+            seg_len = min(gap_r, w)
+            q_off = c.last_q + k - start
+            q_seg = qseq[q_off : q_off + seg_len]
+            if c.strand == "+":
+                hi = min(c.last_t + k + w, t_len)
+                tgt = seq_idx.fetch_sequence(c.genome, c.last_t + k, hi)
+                consumed, matches = align_extend(q_seg, tgt)
+                if matches / max(len(q_seg), 1) >= min_alignment_identity:
+                    c.t_end = c.last_t + k + consumed
+                    c.q_end = c.last_q + k + seg_len
+            else:
+                lo = max(c.last_t - w, 0)
+                tgt = seq_idx.fetch_sequence(c.genome, lo, c.last_t)
+                consumed, matches = align_extend(
+                    reverse_complement(q_seg)[::-1], tgt[::-1]
+                )
+                if matches / max(len(q_seg), 1) >= min_alignment_identity:
+                    c.t_start = c.last_t - consumed
+                    c.q_end = c.last_q + k + seg_len
+        c.t_start = max(c.t_start, 0)
+        c.t_end = min(c.t_end, t_len)
+
+
+def _entry(
+    visited: dict[int, SortedRanges], syng: SyngIndex, sid: int
+) -> SortedRanges:
+    r = visited.get(sid)
+    if r is None:
+        r = SortedRanges(
+            sequence_length=syng.seq_index.get_len_from_id(sid) or 0,
+            min_distance=0,
+        )
+        visited[sid] = r
+    return r
+
+
 def query_transitive(
     syng: SyngIndex,
     name: str,
@@ -270,13 +377,9 @@ def query_transitive(
     alignment-backed `query_transitive_bfs` semantics (same
     min-transitive-length and min-distance snapping rules).
 
-    `seq_idx` (sequence access for impg_tpu's ends-only boundary
-    refinement, syng_transitive.rs:485 refine_ends_only role) is not yet
-    ported: a walk given one raises NotImplementedError."""
-    if seq_idx is not None:
-        raise NotImplementedError(
-            "chain-end refinement with sequences is not yet ported to "
-            "impg_tpu_torch")
+    With `seq_idx` (sequence access), every hop's chains get ends-only
+    boundary refinement with the native aligner instead of padded linear
+    extrapolation (syng_transitive.rs:485 refine_ends_only role)."""
     qid = syng.seq_index.get_id(name)
     if qid is None:
         raise KeyError(f"Sequence '{name}' not found in syng index")
@@ -299,6 +402,11 @@ def query_transitive(
                 min_anchors=min_anchors,
                 extend_budget=extend_budget,
             )
+            if seq_idx is not None:
+                refine_chain_ends(
+                    syng, hop_chains, seq_idx, tname, s, e,
+                    extend_budget=extend_budget,
+                )
             for ch in hop_chains:
                 hid = syng.seq_index.get_id(ch.genome)
                 if hid is None:

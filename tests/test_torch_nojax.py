@@ -11,8 +11,10 @@ and -x), `sort` of a variation graph with the numpy and device (K-I's
 twin) path-SGD backends, `map --graph -o graph-pack-tsv|gaf|paf` and
 `genotype --graph` on the device (the products' and K-H's twins) and host
 engines, `query -o fasta|gfa|vcf` and `similarity --pca` (the sequence
-layer and the POA) on the device and native engines; and the `.syngt`
-forms still refused exit 2."""
+layer and the POA) on the device and native engines, `query -o gfa
+--gfa-engine pggb` (alignment, seqwish and the pggb chain) and a `-o gfa:`
+pipeline, `.syngt` queries with sequence files (chain-end refinement, a
+region graph); and `-o gbwt` of a `.syngt` query, still refused, exits 2."""
 
 import os
 import random
@@ -174,19 +176,30 @@ for argv in (["query", *region, "-o", "fasta"],
         assert rc == 0, argv
 with open("region.gfa") as fh:
     assert fh.read().count("\nP\t") >= 3
-refused = (
-    ["query", "-a", "pan_host.syngt", "-r", "hap0:0-3000", "-d", "100",
-     "-x", "--sequence-files", fasta],
-    ["query", "-a", "pan_host.syngt", "-r", "hap0:0-3000", "-d", "100",
-     "-o", "gfa"],
-)
-for argv in refused:
-    try:
-        impg_tpu_torch.cli.main(argv, device="cpu")
-    except SystemExit as e:
-        assert e.code == 2, argv
-    else:
-        raise AssertionError(f"not refused: {argv}")
+import impg_tpu_torch.graph.crush
+import impg_tpu_torch.graph.pggb
+import impg_tpu_torch.graph.seqwish
+syng_region = ["-a", "pan_host.syngt", "-r", "hap0:0-3000", "-d", "100",
+               "-x", "--sequence-files", fasta]
+for argv, out in (
+        (["query", *region, "-o", "gfa", "--gfa-engine", "pggb", "-O",
+          "pggb.gfa", "--compute-engine", "device"], "pggb.gfa"),
+        (["query", *region, "-o", "gfa:sort:smooth:normalize:crush", "-O",
+          "pipeline.gfa", "--compute-engine", "device"], "pipeline.gfa"),
+        (["query", *syng_region, "-o", "bed", "-O", "syng.bed"], "syng.bed"),
+        (["query", *syng_region, "-o", "gfa", "-O", "syng.gfa"], "syng.gfa")):
+    rc = impg_tpu_torch.cli.main(argv, device="cpu")
+    assert rc == 0, argv
+    with open(out) as fh:
+        assert fh.read().count("\n") >= 3, out
+try:
+    impg_tpu_torch.cli.main(["query", "-a", "pan_host.syngt", "-r",
+                             "hap0:0-3000", "-d", "100", "-o", "gbwt", "-O",
+                             "x", "--sequence-files", fasta], device="cpu")
+except SystemExit as e:
+    assert e.code == 2
+else:
+    raise AssertionError("-o gbwt of a .syngt query not refused")
 loaded = [m for m, mod in sys.modules.items() if blocked(m) and mod is not None]
 assert not loaded, loaded
 assert not tried, tried
