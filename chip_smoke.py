@@ -132,6 +132,26 @@ just after, and fails unless every kernel of that path launched:
              files (`-x -o bed` with refined chain ends, `gfa`, `fasta`,
              `maf`, `fasta-aln`, `vcf`, `gfa:sort`) equal on the
              device-built and the host-built index
+  4. tracepoint files  `.1aln` and `.tpa` through the CLI: an index of
+             10,000 alignments written with write_1aln (ASCII, binary) and
+             write_tpa (fastga, standard), each ingested by `index` without
+             sequences and walked on the card (`query -x` of the 256 seeds:
+             K-B, K-C, K-D; `--approximate`: K-B, K-E, K-D; `stats -b` of
+             K-A's regions: K-A) against the native engine (the host's for
+             stats), bytes equal, the ASCII and binary files' indexes equal;
+             `export-1aln --binary` and `export-tpa` of the sequence
+             panel's first 16 alignments, `query -x -o bed
+             --sequence-files` over the 64 windows of 10 kb, device against
+             native (rows off the PAF index's counted); `query -x -o gbwt`
+             over the 4 windows of 2 kb, device against native, and `-o
+             gbwt` of the cut panel's `.syngt`: regional `.syngt` members
+             equal
+  4. syng tools  on the cut panel's device-built syng index: `syng2gfa`
+             blunt, raw and `--gfa-version 1.1` (every blunt path spells its
+             sequence), `syng-repair --force` (occurrences unchanged),
+             `read-index`, `map -o pack|gaf` on the card (K-G) and on the
+             host, and `infer -w 1000 --gaf --read-index
+             --write-haplotypes` from each: report and haplotypes equal
   5. cli     impg_tpu_torch.cli's query -x -o bed|paf, stats -b, query -x
              --approximate -o bed, query -x -o bed and stats -b under
              IMPG_HBM_BUDGET_BYTES=16384 (paged), partition -o bed|paf (the
@@ -2878,7 +2898,7 @@ def phase_sequence(tmp: str, kernels, synth) -> dict:
     and the output of one window, run natively, equal to the device run's
     output for that window.  Returns the panel's and the cut panel's files,
     the 2 kb windows and their native walk rows, for `[4 graph
-    pipeline]`."""
+    pipeline]`, and the 10 kb windows, for `[4 tracepoint files]`."""
     from impg_tpu_torch import cli as tcli
     from impg_tpu_torch.graph import poa as poa_mod
     from impg_tpu_torch.host import NativeHostEngine, load_or_build
@@ -3003,7 +3023,7 @@ def phase_sequence(tmp: str, kernels, synth) -> dict:
     print(f"[4 sequence] phase_s={time.perf_counter() - t_phase:.1f}",
           flush=True)
     return dict(fa=fa, paf=paf, windows=poa_win, rows=poa_rows,
-                cut=(gfa_fa, gfa_paf))
+                fasta_windows=fasta_win, cut=(gfa_fa, gfa_paf))
 
 
 # [4 graph pipeline]: the seqwish, syng-native and pggb region engines, the
@@ -3055,7 +3075,7 @@ def graph_stages() -> list:
             (selfloops, "normalize_self_loops", "selfloops")]
 
 
-def phase_graph_pipeline(tmp: str, kernels, seq: dict) -> None:
+def phase_graph_pipeline(tmp: str, kernels, seq: dict) -> dict:
     """`query -o gfa|vcf --gfa-engine seqwish|syng-native|pggb`, `-o
     gfa:<stages>` and `.syngt` region outputs through the port's CLI in
     this process, on [4 sequence]'s panels.  Each device run has the launch
@@ -3068,7 +3088,8 @@ def phase_graph_pipeline(tmp: str, kernels, seq: dict) -> None:
     with `syng --compute-engine device` (K-F, equal to the host build's
     bytes), then each query's output on it equal to that on the host-built
     index (`-x -o bed` with sequence files: refined chain ends), no kernel
-    launched (the syng walk is the host's)."""
+    launched (the syng walk is the host's).  Returns the two syng index
+    files, for `[4 tracepoint files]` and `[4 syng tools]`."""
     from impg_tpu_torch.host import NativeHostEngine, load_or_build
     from impg_tpu_torch.query import engine as engine_mod
 
@@ -3163,7 +3184,426 @@ def phase_graph_pipeline(tmp: str, kernels, seq: dict) -> None:
           f"{'; '.join(parts)}", flush=True)
     print(f"[4 graph pipeline] phase_s={time.perf_counter() - t_phase:.1f}",
           flush=True)
+    return {engine: syngt[engine][0] for engine in syngt}
 
+
+
+# [4 tracepoint files]: .1aln and .tpa files into the main path.  Fast mode
+# (no sequences) on its own index of TP_N_ALN alignments, written as each
+# of the four files, ingested by the CLI's `index` and walked by the device
+# and native engines (cut from a tenth of the query tier's alignments: at
+# 25,000 this phase and [4 syng tools] took 179.1 s on an H100 host against
+# the 150 s they may take of the smoke); exact mode (with sequences) on the
+# sequence panel's first TP_EXACT_ALNS alignments (native realignment of
+# every trace segment is the cost); `-o gbwt` on the full panel and on the
+# cut panel's syng index.
+TP_N_ALN = 15_000
+TP_SPACING = 100
+TP_EXACT_ALNS = 16
+TP_STATS_REGIONS = 4096
+APPROX_PATH = ("windows", "project_approx", "compact")
+
+
+def _members(path: str) -> dict:
+    """A numpy zip's members and their bytes (the zip itself carries its
+    write time)."""
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        return {n: z.read(n) for n in sorted(z.namelist())}
+
+
+def host_run(kernels, argv) -> tuple:
+    """A host subcommand of the port's CLI (no `--compute-engine`) in this
+    process with the launch counts zeroed around it: (stdout bytes, wall s,
+    stderr, launches); fails unless it exits 0 and launches nothing."""
+    from impg_tpu_torch import cli as tcli
+
+    kernels.reset_launch_counts()
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = tcli.main(argv, device=DEVICE)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if rc != 0:
+        raise RuntimeError(f"cli {argv} rc={rc}: {err.getvalue()[-2000:]}")
+    check_launches(f"cli {argv[0]}", launches, ())
+    return out.getvalue().encode(), wall, err.getvalue(), launches
+
+
+def _index_arrays(index) -> dict:
+    """An index's records, arena runs and sequence names, for equality."""
+    cols = {f"records.{f.name}": getattr(index.records, f.name)
+            for f in dataclasses.fields(index.records)}
+    cols["arena.runs"] = index.arena.runs
+    cols["names"] = np.array([index.seq_index.get_name(i)
+                              for i in range(len(index.seq_index))])
+    return cols
+
+
+def _bed_rows(data: bytes) -> dict:
+    """BED rows keyed by (name column, sequence): their (start, end)s in
+    order."""
+    rows: dict = {}
+    for ln in data.decode().splitlines():
+        f = ln.split("\t")
+        rows.setdefault((f[3], f[0]), []).append((int(f[1]), int(f[2])))
+    return rows
+
+
+def bed_differences(got: bytes, ref: bytes) -> tuple:
+    """(rows of `got` not in `ref` or the reverse, the largest bp shift of
+    a row paired in order under the same window and sequence)."""
+    a, b = _bed_rows(got), _bed_rows(ref)
+    differ = max_bp = 0
+    for key in set(a) | set(b):
+        ra, rb = a.get(key, []), b.get(key, [])
+        differ += abs(len(ra) - len(rb))
+        for x, y in zip(ra, rb):
+            if x != y:
+                differ += 1
+                max_bp = max(max_bp, abs(x[0] - y[0]), abs(x[1] - y[1]))
+    return differ, max_bp
+
+
+def phase_tracepoint_files(tmp: str, kernels, synth, seq: dict,
+                           syngt: dict) -> None:
+    """`.1aln` and `.tpa` into the main path through the port's CLI in this
+    process.  Fast mode: an index of TP_N_ALN alignments written with
+    write_1aln (ASCII, binary) and write_tpa (fastga, standard), each file
+    ingested by `index` without sequences, then `query -x` of the 256
+    seeds, the same walk `--approximate`, and `stats -b` over K-A's
+    regions, each on the device engine (traced; K-B, K-C and K-D, K-B, K-E
+    and K-D, K-A launched and nothing else) against the native engine (the
+    host's for `stats`): bytes equal, and the ASCII and binary files give
+    equal indexes.  Exact mode: `export-1aln --binary` and `export-tpa` of
+    the sequence panel's first TP_EXACT_ALNS alignments, then `query -x -o
+    bed --sequence-files` over [4 sequence]'s 64 windows of 10 kb, native
+    (ingest included) against device: bytes equal; the rows that differ
+    from the PAF-built index's are counted.  `-o gbwt` over [4 sequence]'s
+    4 windows of 2 kb, device against native, and of the cut panel's
+    `.syngt` on the device-built and host-built index: the regional
+    `.syngt` members equal."""
+    from impg_tpu_torch import cli as tcli
+    from impg_tpu_torch.host import load_or_build
+    from impg_tpu_torch.io import onealn, tpa
+
+    t_phase = t0 = time.perf_counter()
+    index = synth.realistic_directed_index(seed=3, n_seqs=N_SEQS,
+                                           seq_len=SEQ_LEN, n_aln=TP_N_ALN)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tp = index.ensure_tracepoints(TP_SPACING)
+    tp_s = time.perf_counter() - t0
+    print(f"[setup] tracepoint files: {len(index.records)} directed records, "
+          f"{index.arena.n_ops} arena runs, {tp.q_bound.size} tracepoint "
+          f"boundaries; generated in {gen_s:.1f}s, tracepoints in "
+          f"{tp_s:.1f}s; reduced: n_aln {TP_N_ALN} of the query tier's "
+          f"{N_ALN} (at 25000, a tenth, this phase and [4 syng tools] took "
+          f"179.1 s on an H100 host against their 150 s share of the "
+          f"smoke); exact mode on the "
+          f"sequence panel's first {TP_EXACT_ALNS} alignments", flush=True)
+    names = index.seq_index.get_name
+    seeds = os.path.join(tmp, "tp_seeds.bed")
+    with open(seeds, "w") as fh:
+        for tid, s, e in scale_queries(len(index.seq_index), N_SEEDS):
+            fh.write(f"{names(tid)}\t{s}\t{e}\n")
+    regions = os.path.join(tmp, "tp_regions.bed")
+    with open(regions, "w") as fh:
+        for tid, s, e in zip(*(a.tolist() for a in
+                               random_regions(TP_STATS_REGIONS))):
+            if tid >= 0:
+                fh.write(f"{names(tid)}\t{s}\t{e}\n")
+    writers = {
+        "ascii.1aln": lambda p: onealn.write_1aln(
+            p, index.seq_index, index.records, index.arena, tp),
+        "binary.1aln": lambda p: onealn.write_1aln(
+            p, index.seq_index, index.records, index.arena, tp, binary=True),
+        "fastga.tpa": lambda p: tpa.write_tpa(
+            p, index.seq_index, index.records, index.arena, tp,
+            tp_type="fastga"),
+        "standard.tpa": lambda p: tpa.write_tpa(
+            p, index.seq_index, index.records, index.arena, tp,
+            tp_type="standard"),
+    }
+    walks = (
+        ("query -x", ["query", "-b", seeds, "-x", "-d", "100"], "native",
+         WALK_PATH),
+        ("query -x --approximate", ["query", "-b", seeds, "-x", "-d", "100",
+                                    "--approximate"], "native", APPROX_PATH),
+        ("stats -b", ["stats", "-b", regions], "host", ("stab_count",)),
+    )
+    built = {}
+    for name, write in writers.items():
+        path = os.path.join(tmp, "tp_" + name)
+        t0 = time.perf_counter()
+        n_written = write(path)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            if tcli.main(["index", "-a", path], device=DEVICE) != 0:
+                raise RuntimeError(f"tracepoint files: index {name} failed")
+        ingest_s = time.perf_counter() - t0
+        built[name] = load_or_build([path])
+        parts = []
+        for label, argv, ref_engine, path_kernels in walks:
+            full = [argv[0], "-a", path, *argv[1:]]
+            dev = cli_run(kernels, [], full, "device", traced=True)
+            ref = cli_run(kernels, [], full, ref_engine)
+            check_launches(f"tracepoint files {name} {label}", dev[3],
+                           path_kernels)
+            if dev[0] != ref[0] or len(dev[0].splitlines()) < 2:
+                raise AssertionError(f"tracepoint files {name} {label}: "
+                                     f"device output differs from the "
+                                     f"{ref_engine} engine's")
+            data, wall, clock, launches, busy, runs = dev
+            walk_s = clock.s["walk"]
+            rate = (f"walk_s={walk_s:.3f} seeds_per_s={N_SEEDS / walk_s:.2f} "
+                    if walk_s else "")
+            parts.append(f"{label}: wall_s={wall:.3f} {rate}"
+                         f"{ref_engine}_wall_s={ref[1]:.3f} "
+                         f"{device_share(busy, wall)} traced_runs={runs} "
+                         f"lines={len(data.splitlines())} "
+                         f"equal_{ref_engine}=True "
+                         f"launches={json.dumps(launches)}")
+        print(f"[4 tracepoint files] {name}: alignments={n_written} "
+              f"export_s={export_s:.3f} bytes={os.path.getsize(path)} "
+              f"ingest_s={ingest_s:.3f} records={len(built[name].records)} "
+              f"runs={built[name].arena.n_ops}; " + "; ".join(parts),
+              flush=True)
+    a, b = (_index_arrays(built[n]) for n in ("ascii.1aln", "binary.1aln"))
+    if a.keys() != b.keys() or not all(np.array_equal(a[k], b[k])
+                                       for k in a):
+        raise AssertionError("tracepoint files: the ASCII and binary .1aln "
+                             "give different indexes")
+    del built, index, tp
+    torch.cuda.empty_cache()
+
+    # Exact mode: the sequence panel's first alignments, with sequences.
+    cut_paf = os.path.join(tmp, "tp_exact.paf")
+    with open(seq["paf"]) as src, open(cut_paf, "w") as fh:
+        fh.writelines(src.readlines()[:TP_EXACT_ALNS])
+    bed = _bed(os.path.join(tmp, "tp_exact.bed"), seq["fasta_windows"])
+    walk = ["-b", bed, "-x", "-m", "2", "-d", "0", "--sequence-files",
+            seq["fa"], "-o", "bed"]
+    paf_ref = cli_run(kernels, [], ["query", "-a", cut_paf, *walk], "native")
+    exports = (("binary.1aln", ["export-1aln", "--binary"]),
+               ("fastga.tpa", ["export-tpa"]))
+    outs = []
+    for name, cmd in exports:
+        path = os.path.join(tmp, "tp_exact_" + name)
+        _, export_s, err, _ = host_run(
+            kernels, [cmd[0], "-a", cut_paf, *cmd[1:], "-o", path])
+        ref = cli_run(kernels, [], ["query", "-a", path, *walk], "native")
+        dev = cli_run(kernels, [], ["query", "-a", path, *walk], "device",
+                      traced=True)
+        check_launches(f"tracepoint files exact {name}", dev[3], WALK_PATH)
+        if dev[0] != ref[0] or len(dev[0].splitlines()) < 2:
+            raise AssertionError(f"tracepoint files exact {name}: device "
+                                 "bytes differ from the native engine's")
+        outs.append(dev[0])
+        differ, max_bp = bed_differences(dev[0], paf_ref[0])
+        data, wall, clock, launches, busy, runs = dev
+        print(f"[4 tracepoint files] exact {name}: export_s={export_s:.3f} "
+              f"bytes={os.path.getsize(path)} native_ingest_and_walk_s="
+              f"{ref[1]:.3f} device_wall_s={wall:.3f} "
+              f"walk_s={clock.s['walk']:.3f} {device_share(busy, wall)} "
+              f"traced_runs={runs} lines={len(data.splitlines())} "
+              f"equal_native=True rows_differing_from_paf={differ} "
+              f"max_bp={max_bp} launches={json.dumps(launches)}",
+              flush=True)
+
+    # -o gbwt: the full panel's 2 kb windows; the cut panel's .syngt.
+    poa_bed = _bed(os.path.join(tmp, "tp_gbwt.bed"), seq["windows"])
+    members = []
+    for engine in ("device", "native"):
+        prefix = os.path.join(tmp, f"tp_gbwt_{engine}")
+        run = cli_run(kernels, [], [
+            "query", "-a", seq["paf"], "-b", poa_bed, "-x", "-m", "2", "-d",
+            "0", "-o", "gbwt", "--sequence-files", seq["fa"], "-O", prefix],
+            engine, traced=engine == "device")
+        members.append((_members(prefix + ".syngt"), run))
+    (dev_m, dev), (ref_m, ref) = members
+    check_launches("tracepoint files -o gbwt", dev[3], WALK_PATH)
+    if dev_m != ref_m:
+        raise AssertionError("tracepoint files -o gbwt: the device run's "
+                             ".syngt differs from the native run's")
+    s, e = GP_CUT_WINDOWS[1]
+    syng_m = []
+    for engine, path in syngt.items():
+        prefix = os.path.join(tmp, f"tp_syng_gbwt_{engine}")
+        run = cli_run(kernels, [], [
+            "query", "-a", path, "-r", f"base:{s}-{e}", "-d", "0", "-o",
+            "gbwt", "--sequence-files", seq["cut"][0], "-O", prefix],
+            engine)
+        check_launches(".syngt -o gbwt", run[3], ())
+        syng_m.append((_members(prefix + ".syngt"), run[1]))
+    if syng_m[0][0] != syng_m[1][0]:
+        raise AssertionError("tracepoint files .syngt -o gbwt: the device-"
+                             "built index's regional index differs")
+    print(f"[4 tracepoint files] query -o gbwt: {len(seq['windows'])} "
+          f"windows of 2 kb, device wall_s={dev[1]:.3f} "
+          f"walk_s={dev[2].s['walk']:.3f} {device_share(dev[4], dev[1])} "
+          f"native_wall_s={ref[1]:.3f} syngt_bytes="
+          f"{sum(len(v) for v in dev_m.values())} members_equal=True "
+          f"launches={json.dumps(dev[3])}; .syngt base:{s}-{e} -o gbwt "
+          f"{syng_m[0][1]:.3f}s, equal on the device-built and host-built "
+          f"index, no kernel launched", flush=True)
+    print(f"[4 tracepoint files] phase_s={time.perf_counter() - t_phase:.1f}",
+          flush=True)
+
+
+# [4 syng tools]: host tools over [4 graph pipeline]'s cut-panel syng index
+# (built on the card) and the cut panel's FASTA; reads of two of its
+# haplotypes mapped on the card (K-G) and on the host.
+SYNG_TOOLS_SOURCES = ("hap0", "hap1")
+SYNG_TOOLS_READS = 2_000
+SYNG_TOOLS_WINDOW = 1000
+
+
+def _fasta_dict(path: str) -> dict:
+    out, name = {}, None
+    with open(path, "rb") as fh:
+        for line in fh:
+            line = line.rstrip(b"\n")
+            if line.startswith(b">"):
+                name = line[1:].split()[0].decode()
+                out[name] = b""
+            else:
+                out[name] += line
+    return out
+
+
+def spell_gfa(text: str) -> dict:
+    """Each P or W line's spelling from the S lines."""
+    from impg_tpu_torch.io.fasta import reverse_complement
+
+    segs, paths = {}, {}
+    lines = [ln.split("\t") for ln in text.splitlines()]
+    for f in lines:
+        if f[0] == "S":
+            segs[f[1]] = f[2].encode()
+    for f in lines:
+        if f[0] == "P":
+            steps = [(st[:-1], st[-1] == "-") for st in f[2].split(",")]
+            name = f[1]
+        elif f[0] == "W":
+            import re
+
+            steps = [(sid, o == "<")
+                     for o, sid in re.findall(r"([<>])([^<>]+)", f[6])]
+            name = f[3]
+        else:
+            continue
+        paths[name] = b"".join(
+            reverse_complement(segs[sid]) if rev else segs[sid]
+            for sid, rev in steps)
+    return paths
+
+
+def phase_syng_tools(tmp: str, kernels, synth, seq: dict,
+                     syngt: dict) -> None:
+    """`syng2gfa` (blunt, raw, blunt with `--gfa-version 1.1`),
+    `syng-repair --force`, `read-index`, `map -o pack|gaf` (device: K-G for
+    the pack; host) and `infer` with `--gaf`, `--read-index` and
+    `--write-haplotypes`, on the cut panel's device-built syng index.
+    Gates: every blunt path spells its sequence; the repaired index loads
+    with the original's occurrence arrays; the host tools launch nothing;
+    the pack run launches K-G alone; infer's report and haplotype FASTAs
+    from the device-mapped pack and GAF equal those from the host-mapped
+    ones.  The share of windows calling the two source haplotypes is
+    printed, not gated (impg_tpu's first-path rule for shared syncmers)."""
+    from impg_tpu_torch.syng.index import SyngIndex
+
+    t_phase = time.perf_counter()
+    fa = seq["cut"][0]
+    index = syngt["device"]
+    seqs = _fasta_dict(fa)
+    parts = []
+    for label, extra in (("blunt", []), ("raw", ["--mode", "raw"]),
+                         ("blunt 1.1", ["--gfa-version", "1.1"])):
+        out = os.path.join(tmp, f"st_{label.replace(' ', '_')}.gfa")
+        _, wall, _, _ = host_run(kernels, ["syng2gfa", "-a", index,
+                                           "--sequence-files", fa, *extra,
+                                           "-o", out])
+        text = _read(out).decode()
+        counts = {t: sum(ln.startswith(t + "\t") for ln in text.splitlines())
+                  for t in ("S", "L", "P", "W")}
+        if label != "raw":
+            spelled = spell_gfa(text)
+            if spelled.keys() != seqs.keys() or any(
+                    spelled[n] != seqs[n] for n in seqs):
+                raise AssertionError(f"syng tools syng2gfa {label}: a path "
+                                     "does not spell its sequence")
+        parts.append(f"syng2gfa {label} {wall:.3f}s "
+                     + " ".join(f"{t}={n}" for t, n in counts.items() if n)
+                     + (" spelled_exactly=True" if label != "raw" else ""))
+    copy = os.path.join(tmp, "st_repair.syngt")
+    shutil.copy(index, copy)
+    _, wall, err, _ = host_run(kernels, ["syng-repair", copy, "--force"])
+    before, after = SyngIndex.load(index), SyngIndex.load(copy)
+    for k in ("occ_ids", "occ_seq", "occ_pos", "occ_fwd"):
+        if not np.array_equal(getattr(before, k), getattr(after, k)):
+            raise AssertionError(f"syng tools syng-repair: {k} changed")
+    parts.append(f"syng-repair --force {wall:.3f}s ({err.strip()}) "
+                 "occurrences_equal=True")
+    reads = os.path.join(tmp, "st_reads.fq")
+    synth.write_fastq(reads, synth.sample_reads(
+        31, [seqs[h] for h in SYNG_TOOLS_SOURCES], SYNG_TOOLS_READS))
+    ridx = os.path.join(tmp, "st_reads")
+    _, wall, err, _ = host_run(kernels, ["read-index", "-q", reads, "-O",
+                                         ridx])
+    parts.append(f"read-index {wall:.3f}s ({err.strip().split(' -> ')[0]})")
+    print("[4 syng tools] " + "; ".join(parts), flush=True)
+
+    maps = {}
+    for engine in ("device", "host"):
+        pack = os.path.join(tmp, f"st_{engine}.packt")
+        gaf = os.path.join(tmp, f"st_{engine}.gaf")
+        p = cli_run(kernels, [], ["map", "-a", index, "-q", reads, "-o",
+                                  "pack", "-O", pack], engine, pack)
+        g = cli_run(kernels, [], ["map", "-a", index, "-q", reads, "-o",
+                                  "gaf", "-O", gaf], engine, gaf)
+        check_launches(f"syng tools map -o pack {engine}", p[3],
+                       ("map_pack",) if engine == "device" else ())
+        check_launches(f"syng tools map -o gaf {engine}", g[3], ())
+        maps[engine] = (pack, gaf, p[1], g[1], p[3])
+    src = SYNG_TOOLS_SOURCES[0]
+    results = {}
+    for engine, (pack, gaf, *_rest) in maps.items():
+        prefix = os.path.join(tmp, f"st_hap_{engine}")
+        report, wall, _, _ = host_run(kernels, [
+            "infer", "-a", index, "-p", pack, "-r",
+            f"{src}:0-{len(seqs[src])}", "-w", str(SYNG_TOOLS_WINDOW),
+            "--gaf", gaf, "--read-index", ridx + ".readidx",
+            "--read-link-weight", "0.5", "--write-haplotypes", prefix,
+            "--sequence-files", fa])
+        fastas = b"".join(_read(f"{prefix}_hap{k}.fa") for k in range(2))
+        results[engine] = (report, fastas, wall)
+    if results["device"][:2] != results["host"][:2]:
+        raise AssertionError("syng tools infer: the report or haplotypes "
+                             "from the device-mapped pack and GAF differ "
+                             "from the host-mapped ones'")
+    calls = [ln.split("\t")[5] for ln in results["device"][0].decode()
+             .splitlines() if ln.startswith("window\t")]
+    truth = sum(set(c.split("|")) == set(SYNG_TOOLS_SOURCES) for c in calls)
+    dev, host = maps["device"], maps["host"]
+    print(f"[4 syng tools] map {SYNG_TOOLS_READS} reads of "
+          f"{'+'.join(SYNG_TOOLS_SOURCES)}: -o pack device {dev[2]:.3f}s "
+          f"(launches {json.dumps(dev[4])}) host {host[2]:.3f}s; -o gaf "
+          f"device {dev[3]:.3f}s host {host[3]:.3f}s; infer {src}:0-"
+          f"{len(seqs[src])} -w {SYNG_TOOLS_WINDOW} --gaf --read-index "
+          f"--read-link-weight 0.5 --write-haplotypes: "
+          f"{results['device'][2]:.3f}s from the device maps, "
+          f"{results['host'][2]:.3f}s from the host maps, report and "
+          f"haplotypes equal ({len(results['device'][0])} and "
+          f"{len(results['device'][1])} bytes); windows={len(calls)} "
+          f"calling_{'+'.join(SYNG_TOOLS_SOURCES)}={truth} "
+          f"share={truth / max(len(calls), 1):.3f} (information, not a "
+          "gate)", flush=True)
+    print(f"[4 syng tools] phase_s={time.perf_counter() - t_phase:.1f}",
+          flush=True)
 
 
 def main() -> int:
@@ -3297,7 +3737,9 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="impg_smoke_")
     try:
         seq = phase_sequence(tmp, kernels, synth)
-        phase_graph_pipeline(tmp, kernels, seq)
+        syngt = phase_graph_pipeline(tmp, kernels, seq)
+        phase_tracepoint_files(tmp, kernels, synth, seq, syngt)
+        phase_syng_tools(tmp, kernels, synth, seq, syngt)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     tmp = tempfile.mkdtemp(prefix="impg_smoke_")

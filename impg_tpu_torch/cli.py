@@ -1,9 +1,14 @@
 """Command line of the PyTorch/CUDA port.
 
 The port's own CLI for `index`, `query`, `stats`, `partition`, `refine`,
-`similarity`, `syng`, `map`, `genotype` and `sort`, with impg_tpu.cli's
-argument names, defaults, messages and output bytes for them; it imports
-nothing of impg_tpu.  `--compute-engine device|auto` runs the port's engines
+`similarity`, `syng`, `map`, `genotype`, `sort`, `export-1aln`,
+`export-tpa`, `read-index`, `syng2gfa`, `syng-repair` and `infer`, with
+impg_tpu.cli's argument names, defaults, messages and output bytes for them;
+it imports nothing of impg_tpu.  Alignments are PAF (optionally gzipped),
+`.1aln` (ASCII or the ONEcode binary container) or `.tpa`: tracepoint files
+are ingested on the host, approximately, or exactly with `--sequence-files`
+(io/onealn.py, io/tpa.py), and the index they give is walked like a PAF
+index.  `--compute-engine device|auto` runs the port's engines
 (for `partition` and `refine -x`, one transitive walk a window or flank
 candidate; for `similarity -x`, one a target):
 
@@ -29,21 +34,25 @@ candidate; for `similarity -x`, one a target):
 On the host, as in impg_tpu: `map -a INDEX -o gaf|paf|proj` (syng/map.py),
 `map --graph GFA -o graph-pack|graph-pack-tsv|gaf|paf`, and `query -a
 X.syngt`, raw or chained with `-x` (syng/transitive.py; with sequence files
-the chain ends refine by native ends-free alignment), to bed, bedpe and
-every region format; the sequence stages of `query -o
-fasta|fasta+paf|gfa|maf|fasta-aln|vcf`, `partition -o fasta|gfa|maf|vcf` and
-`similarity` after their walks (sequences through io/fasta.py's
-UnifiedSequenceIndex, graphs and MSAs through the C++ POA of graph/poa.py);
-the region graph engines `--gfa-engine seqwish|syng-native|pggb` of `-o
-gfa|vcf` (all-vs-all alignment, seqwish induction and pggb's chain,
-graph/region.py); and the `-o gfa:<pipeline>` stages after any engine
-(`cut-n`, `sort`, `sgd`, `smooth`, `normalize`, `crush`, `selfloops`).
+the chain ends refine by native ends-free alignment), to bed, bedpe, gbwt
+and every region format; the sequence stages of `query -o
+fasta|fasta+paf|gfa|maf|fasta-aln|vcf|gbwt` (gbwt: the walk's merged
+intervals indexed as a regional `.syngt` with the native extractor),
+`partition -o fasta|gfa|maf|vcf` and `similarity` after their walks
+(sequences through io/fasta.py's UnifiedSequenceIndex, graphs and MSAs
+through the C++ POA of graph/poa.py); the region graph engines
+`--gfa-engine seqwish|syng-native|pggb` of `-o gfa|vcf` (all-vs-all
+alignment, seqwish induction and pggb's chain, graph/region.py); the `-o
+gfa:<pipeline>` stages after any engine (`cut-n`, `sort`, `sgd`, `smooth`,
+`normalize`, `crush`, `selfloops`); the tracepoint exports; and the syng
+tools: `read-index`, `syng2gfa`, `syng-repair` and `infer` (candidates
+scored by genotype_cos on the host, as impg_tpu's infer does whatever
+`--compute-engine` says; `--gaf` read walks matched through the GBWT of
+syng/gbwt.py).
 
 Not yet ported, and refused with exit status 2 before any input is read:
-every other subcommand of impg_tpu.cli; the regional-syng (`gbwt`) output
-of `query`, of a PAF or a `.syngt` index; `.syngt` inputs of `index`,
-`stats`, `partition`, `refine` and `similarity`; `.1aln` and `.tpa`
-alignment inputs; `--compute-engine mesh`.
+the GFA toolbox subcommands of impg_tpu.cli (UNPORTED_COMMANDS) and
+`--compute-engine mesh`.
 
     python -m impg_tpu_torch.cli query -a aln.paf -r 'chr1:0-50000' -x \\
         -d 100 -o bed --compute-engine device
@@ -63,23 +72,15 @@ from impg_tpu_torch.io import bed as bed_mod
 
 # The subcommands of impg_tpu.cli that the port has not ported.
 UNPORTED_COMMANDS = (
-    "lace", "align",
-    "render", "read-index", "project", "render-graph",
-    "normalize-self-loops", "normalize", "infer", "smooth", "graph",
-    "syng-repair", "export-1aln", "export-tpa", "agz", "syng2gfa",
+    "lace", "align", "render", "project", "render-graph",
+    "normalize-self-loops", "normalize", "smooth", "graph", "agz",
     "crush", "gfa2vcf", "graph-report",
 )
-# Output formats of impg_tpu.cli's `query` that the port has not ported.
-UNPORTED_FORMATS = ("gbwt",)
 # Sequence-backed region formats of `query` (`gfa:<pipeline>` is gfa).
 REGION_FORMATS = ("fasta", "gfa", "maf", "fasta-aln", "vcf")
 # Post-processing stages of `-o gfa:<pipeline>` on the PAF-index route.
 GFA_STAGES = ("sort", "sgd", "smooth", "normalize", "crush", "selfloops",
               "self-loops", "cut-n")
-UNPORTED_INPUTS = (".syngt", ".1aln", ".tpa")
-# Output formats of a `.syngt` query in impg_tpu.cli that the port has not
-# ported (the regional syng index).
-UNPORTED_SYNG_FORMATS = ("gbwt",)
 # Global options of the parser that take a value (for finding the command).
 _VALUE_OPTS = ("-v", "--verbosity", "-t", "--threads")
 
@@ -137,11 +138,20 @@ def _load_index(args):
     from impg_tpu_torch.index import impg_index
 
     files = _alignment_files(args)
+    seq_fetch = None
+    if any(f.endswith((".1aln", ".tpa")) for f in files) and getattr(
+        args, "sequence_files", None
+    ):
+        # .1aln/.tpa tracepoint ingest: sequences enable exact per-segment
+        # CIGAR reconstruction with the native aligner.
+        seq_fetch = _sequence_index(args).fetch_sequence
     if args.no_bidirectional:
         # Bypass cache for non-default build flavor.
-        return impg_index.ImpgIndex.from_paf_files(files, bidirectional=False)
+        return impg_index.ImpgIndex.from_paf_files(
+            files, bidirectional=False, seq_fetch=seq_fetch
+        )
     return impg_index.load_or_build(
-        files, args.index, force=args.force_reindex,
+        files, args.index, force=args.force_reindex, seq_fetch=seq_fetch,
         threads=getattr(args, "threads", 1),
     )
 
@@ -476,8 +486,8 @@ def _syng_query(args, merge_distance: int) -> int:
     """Query routing for `-a <prefix>.syngt` (alignment-free backend), on
     the host as in impg_tpu.cli: raw homologous intervals, or with `-x` the
     chained multihop walk, whose chain ends refine by native ends-free
-    alignment when sequences are given; bed, bedpe and the region formats
-    (`gfa:<pipeline>` included; main() refused gbwt)."""
+    alignment when sequences are given; bed, bedpe, the region formats
+    (`gfa:<pipeline>` included) and gbwt, the regional syng index."""
     from impg_tpu_torch.query import engine as engine_mod
     from impg_tpu_torch.query import outputs
     from impg_tpu_torch.syng.index import SyngIndex
@@ -489,7 +499,7 @@ def _syng_query(args, merge_distance: int) -> int:
         if gfa_stages is None:
             return 2
         fmt = "gfa"
-    if fmt not in ("bed", "bedpe") + REGION_FORMATS:
+    if fmt not in ("bed", "bedpe", "gbwt") + REGION_FORMATS:
         print(
             "error: syng index queries support bed, bedpe, gfa, vcf, "
             "fasta, and gbwt output (main.rs:6602 contract)",
@@ -504,12 +514,24 @@ def _syng_query(args, merge_distance: int) -> int:
                   file=sys.stderr)
             return 2
         seq_idx = _sequence_index(args)
+    gbwt_sequences = None
+    if fmt == "gbwt":
+        if not args.sequence_files or not args.output:
+            print(
+                "error: -o gbwt requires --sequence-files and -O PREFIX",
+                file=sys.stderr,
+            )
+            return 2
+        gbwt_seq_idx = _sequence_index(args)
+        gbwt_sequences = []
     syng = SyngIndex.load(_alignment_files(args)[0])
     if args.target_bed:
         targets = bed_mod.parse_bed_file(args.target_bed)
     else:
         targets = [bed_mod.parse_target_range(args.target_range)]
-    out = open(args.output, "w") if args.output else sys.stdout
+    # -o gbwt treats -O as an artifact prefix, not a text stream.
+    out = (open(args.output, "w") if args.output and fmt != "gbwt"
+           else sys.stdout)
     try:
         for target_name, (start, end), name in targets:
             qid = syng.seq_index.get_id(target_name)
@@ -565,6 +587,9 @@ def _syng_query(args, merge_distance: int) -> int:
                     syng.seq_index, rows, out, name, merge_distance,
                     not args.consider_strandness,
                 )
+            elif fmt == "gbwt":
+                gbwt_sequences.extend(outputs.collect_region_sequences(
+                    syng.seq_index, rows, gbwt_seq_idx, merge_distance))
             elif fmt in REGION_FORMATS:
                 _emit_region_format(
                     syng, rows, out, fmt, args, seq_idx, gfa_stages, qid,
@@ -575,6 +600,11 @@ def _syng_query(args, merge_distance: int) -> int:
                 outputs.write_bedpe(
                     syng.seq_index, rows, out, name, merge_distance
                 )
+        if gbwt_sequences is not None:
+            # Regional index keeps the parent's syncmer parameters
+            # (syng.rs:5263 "same syncmer parameters as this index").
+            _write_region_gbwt(gbwt_sequences, args.output, k=syng.k,
+                               w=syng.w, seed=syng.seed)
     finally:
         if out is not sys.stdout:
             out.close()
@@ -606,10 +636,6 @@ def cmd_query(args, device: torch.device) -> int:
         return _syng_query(args, merge_distance)
 
     fmt = args.output_format
-    if fmt in UNPORTED_FORMATS:
-        _fail(f"-o {fmt} is not yet ported to impg_tpu_torch (ported: bed, "
-              "bedpe, paf, fasta, fasta+paf, gfa, gfa:<pipeline>, maf, "
-              "fasta-aln, vcf)")
     gfa_stages = []
     if fmt.startswith("gfa:"):
         gfa_stages = _gfa_pipeline_stages(fmt)
@@ -624,15 +650,31 @@ def cmd_query(args, device: torch.device) -> int:
                     file=sys.stderr,
                 )
                 return 2
-    valid_formats = {"bed", "bedpe", "paf", "fasta+paf", *REGION_FORMATS}
+    valid_formats = {"bed", "bedpe", "paf", "fasta+paf", "gbwt",
+                     *REGION_FORMATS}
     if fmt not in valid_formats:
         print(
             f"error: invalid output format '{fmt}' "
-            f"(choose from {', '.join(sorted(valid_formats | {'gbwt'}))})",
+            f"(choose from {', '.join(sorted(valid_formats))})",
             file=sys.stderr,
         )
         return 2
     store_cigar = fmt in ("paf", "bedpe", "fasta+paf")
+
+    index = _load_index(args)
+    # As in impg_tpu.cli, these checks follow the index load.
+    gbwt_sequences = seq_idx = None
+    if fmt == "gbwt":
+        # Region-specific syng index output (main.rs:4904: requires -O and
+        # sequence files); intervals accumulate across all targets.
+        if not args.sequence_files or not args.output:
+            print(
+                "error: -o gbwt requires --sequence-files and -O PREFIX",
+                file=sys.stderr,
+            )
+            return 2
+        seq_idx = _sequence_index(args)
+        gbwt_sequences = []
     if args.approximate and fmt not in ("bed", "bedpe"):
         print(
             f"error: --approximate mode is only compatible with 'bed' and "
@@ -640,8 +682,6 @@ def cmd_query(args, device: torch.device) -> int:
             file=sys.stderr,
         )
         return 2
-
-    index = _load_index(args)
 
     if args.target_bed:
         targets = bed_mod.parse_bed_file(args.target_bed)
@@ -655,7 +695,9 @@ def cmd_query(args, device: torch.device) -> int:
     )
     subset_match = subset.matches if subset else None
 
-    out = open(args.output, "w") if args.output else sys.stdout
+    # -o gbwt treats -O as an artifact prefix, not a text stream.
+    out = (open(args.output, "w") if args.output and fmt != "gbwt"
+           else sys.stdout)
     merge_strands = not args.consider_strandness  # BED default merges strands
 
     device_engine = resolve_compute_engine(
@@ -707,7 +749,6 @@ def cmd_query(args, device: torch.device) -> int:
             approximate=args.approximate,
         )
 
-    seq_idx = None
     try:
         for ti, (target_id, start, end, name) in enumerate(resolved):
             if batched_results is not None:
@@ -794,6 +835,9 @@ def cmd_query(args, device: torch.device) -> int:
                     args.original_sequence_coordinates,
                     original_length_lookup=_original_length_lookup(args),
                 )
+            elif fmt == "gbwt":
+                gbwt_sequences.extend(outputs.collect_region_sequences(
+                    index.seq_index, results, seq_idx, merge_distance))
             else:
                 if not args.sequence_files:
                     print(
@@ -822,10 +866,24 @@ def cmd_query(args, device: torch.device) -> int:
                         index, results, out, fmt, args, seq_idx, gfa_stages,
                         target_id, merge_distance,
                     )
+        if gbwt_sequences is not None:
+            _write_region_gbwt(gbwt_sequences, args.output)
     finally:
         if out is not sys.stdout:
             out.close()
     return 0
+
+
+def _write_region_gbwt(sequences, prefix: str, **params) -> None:
+    """Save the regional syng index of `-o gbwt` and report it."""
+    from impg_tpu_torch.query import outputs
+
+    path = outputs.write_region_gbwt(sequences, prefix, **params)
+    print(
+        f"Wrote region syng index over {len(sequences)} "
+        f"interval sequence(s): {path}",
+        file=sys.stderr,
+    )
 
 
 def _stats_region_depth(args, index, device: torch.device) -> int:
@@ -1570,6 +1628,274 @@ def cmd_sort(args, device: torch.device) -> int:
     return 0
 
 
+def cmd_export_1aln(args) -> int:
+    from impg_tpu_torch.io import onealn as onealn_mod
+
+    index = _load_index(args)
+    tp = index.ensure_tracepoints(args.spacing)
+    n = onealn_mod.write_1aln(
+        args.output, index.seq_index, index.records, index.arena, tp,
+        binary=args.binary,
+    )
+    form = "binary" if args.binary else "ASCII"
+    print(f"Wrote {n} alignments ({form}) -> {args.output}", file=sys.stderr)
+    return 0
+
+
+def cmd_export_tpa(args) -> int:
+    from impg_tpu_torch.io import tpa as tpa_mod
+
+    index = _load_index(args)
+    tp = index.ensure_tracepoints(args.spacing)
+    n = tpa_mod.write_tpa(
+        args.output, index.seq_index, index.records, index.arena, tp,
+        tp_type=args.tp_mode,
+    )
+    print(f"Wrote {n} alignments -> {args.output}", file=sys.stderr)
+    return 0
+
+
+def cmd_read_index(args) -> int:
+    from impg_tpu_torch.syng.read_index import ReadSyncmerIndex
+
+    idx = ReadSyncmerIndex.build(
+        _comma_list(args.reads), k=args.syncmer_k, w=args.syncmer_w,
+        seed=args.syncmer_seed,
+    )
+    path = idx.save(args.output)
+    print(
+        f"Indexed {len(idx.read_names)} reads, {idx.ids.size} distinct "
+        f"syncmers -> {path}",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def cmd_syng2gfa(args) -> int:
+    from impg_tpu_torch.syng.index import SyngIndex
+    from impg_tpu_torch.syng.syng2gfa import paths_to_walks, syng_to_gfa
+
+    syng = SyngIndex.load(args.alignment)
+    text = syng_to_gfa(
+        syng, _sequence_index(args),
+        drop_top_fraction=args.drop_top_fraction,
+        max_occurrences=args.max_occurrences,
+        mode=args.mode,
+        cut_n_gaps=args.cut_ns,
+        cut_n_min_run=args.cut_n_min_run,
+    )
+    if args.gfa_version == "1.1":
+        lengths = {
+            syng.seq_index.get_name(i): syng.seq_index.get_len_from_id(i)
+            for i in range(len(syng.seq_index))
+        }
+        text = paths_to_walks(text, lengths)
+    if args.output:
+        with open(args.output, "w") as fh:
+            fh.write(text)
+    else:
+        sys.stdout.write(text)
+    return 0
+
+
+def cmd_syng_repair(args) -> int:
+    """Validate + rebuild a .syngt artifact's derived state without
+    re-reading source sequences (reference: Args::SyngRepair
+    main.rs:10140 rebuilds the positional sidecars from the GBWT alone;
+    the artifact stores direct positions, so repair = invariant check +
+    re-canonicalization of the occurrence-table sort order)."""
+    import numpy as np
+
+    from impg_tpu_torch.core.seqidx import SequenceIndex
+    from impg_tpu_torch.syng import index as syng_index_mod
+
+    path = args.index
+    if not path.endswith(syng_index_mod.SYNG_SUFFIX):
+        path = path + syng_index_mod.SYNG_SUFFIX
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            arrays = {k: z[k] for k in z.files}
+    except Exception as e:
+        print(f"error: cannot read {path}: {e}", file=sys.stderr)
+        return 1
+    required = {
+        "version", "names", "lengths", "occ_ids", "occ_seq", "occ_pos",
+        "occ_fwd", "params",
+    }
+    missing = required - set(arrays)
+    if missing:
+        print(
+            f"error: {path} is missing arrays: {sorted(missing)} "
+            "(not repairable without source sequences; rebuild with "
+            "`syng`)",
+            file=sys.stderr,
+        )
+        return 1
+    n = arrays["occ_ids"].size
+    if not all(
+        arrays[k].size == n for k in ("occ_seq", "occ_pos", "occ_fwd")
+    ):
+        print(
+            f"error: {path} occurrence columns disagree in length "
+            "(truncated write; rebuild with `syng`)",
+            file=sys.stderr,
+        )
+        return 1
+    n_seqs = arrays["names"].size
+    problems = []
+    if n and (
+        int(arrays["occ_seq"].min()) < 0
+        or int(arrays["occ_seq"].max()) >= n_seqs
+    ):
+        problems.append("occ_seq ids out of range")
+    if n:
+        lens = arrays["lengths"][arrays["occ_seq"]]
+        if int((arrays["occ_pos"] < 0).sum()) or int(
+            (arrays["occ_pos"] >= lens).sum()
+        ):
+            problems.append("occ_pos outside sequence bounds")
+    order = np.lexsort(
+        (arrays["occ_pos"], arrays["occ_seq"], arrays["occ_ids"])
+    )
+    sorted_ok = bool((order == np.arange(n)).all())
+    if problems:
+        print(
+            f"error: {path}: " + "; ".join(problems) + " — data is "
+            "inconsistent with its name table; rebuild with `syng`",
+            file=sys.stderr,
+        )
+        return 1
+    if sorted_ok and not args.force:
+        print(
+            f"{path}: OK ({n} occurrences over {n_seqs} sequence(s), "
+            "canonical order). Use --force to rewrite anyway.",
+            file=sys.stderr,
+        )
+        return 0
+    for k in ("occ_ids", "occ_seq", "occ_pos", "occ_fwd"):
+        arrays[k] = arrays[k][order]
+    idx = syng_index_mod.SyngIndex(
+        seq_index=SequenceIndex.from_lists(
+            arrays["names"], arrays["lengths"]
+        ),
+        occ_ids=arrays["occ_ids"],
+        occ_seq=arrays["occ_seq"],
+        occ_pos=arrays["occ_pos"],
+        occ_fwd=arrays["occ_fwd"],
+        k=int(arrays["params"][0]),
+        w=int(arrays["params"][1]),
+        seed=int(arrays["params"][2]),
+    )
+    idx.save(path)
+    what = "rewritten" if sorted_ok else "re-canonicalized and rewritten"
+    print(f"{path}: {what} ({n} occurrences).", file=sys.stderr)
+    return 0
+
+
+def cmd_infer(args) -> int:
+    """Windowed allele inference with mosaic stitching, on the host as in
+    impg_tpu.cli (candidates scored by genotype_cos on the host, whatever
+    `--compute-engine` says)."""
+    from impg_tpu_torch.commands import infer as infer_mod
+    from impg_tpu_torch.syng.index import SyngIndex
+    from impg_tpu_torch.syng.pack import Pack
+
+    if not args.target_range and not args.target_bed:
+        print(
+            "error: infer needs -r/--target-range or -b/--target-bed",
+            file=sys.stderr,
+        )
+        return 2
+    index = SyngIndex.load(args.alignment)
+    pack = Pack.load(args.pack)
+    if args.target_bed:
+        # Partition mode (infer.rs modes-from-inputs role): one windowed
+        # inference per BED row, all streamed into one report.
+        regions = [
+            (chrom, rng[0], rng[1])
+            for chrom, rng, _name in bed_mod.parse_bed_file(args.target_bed)
+        ]
+    else:
+        chrom, (start, end), _ = bed_mod.parse_target_range(
+            args.target_range
+        )
+        regions = [(chrom, start, end)]
+    read_index = None
+    if args.read_index:
+        from impg_tpu_torch.syng.read_index import ReadSyncmerIndex
+
+        read_index = ReadSyncmerIndex.load(args.read_index)
+    # Per-read GAF MEMs are region-independent: parse + GBWT-match ONCE
+    # and reuse the evidence across every BED row.
+    gaf_evidence = args.gaf
+    if args.gaf and args.read_link_weight > 0.0 and len(regions) > 1:
+        gaf_evidence = infer_mod.GafEvidence(index, args.gaf)
+    any_calls = False
+    windows = path = segments = None
+    for ri, (chrom, start, end) in enumerate(regions):
+        windows, path, segments = infer_mod.run_infer(
+            index, pack, chrom, start, end,
+            window=args.window,
+            ploidy=args.ploidy,
+            top_n=args.top_n,
+            switch_penalty=args.switch_penalty,
+            candidate_mode=args.candidate_mode,
+            read_index=read_index,
+            read_link_weight=args.read_link_weight,
+            min_read_link_anchors=args.min_read_link_anchors,
+            gaf_path=gaf_evidence,
+        )
+        if not windows:
+            print(
+                f"warning: no calls for {chrom}:{start}-{end}",
+                file=sys.stderr,
+            )
+            continue
+        any_calls = True
+        if ri == 0 or len(regions) == 1:
+            infer_mod.write_infer_report(
+                sys.stdout, windows, path, segments, args.sample_name
+            )
+        else:
+            import io as io_mod
+
+            buf = io_mod.StringIO()
+            infer_mod.write_infer_report(
+                buf, windows, path, segments, args.sample_name
+            )
+            sys.stdout.write(
+                "".join(
+                    l
+                    for l in buf.getvalue().splitlines(keepends=True)
+                    if not l.startswith("#")
+                )
+            )
+    if not any_calls:
+        print("error: no calls produced for any region", file=sys.stderr)
+        return 1
+    if args.write_haplotypes:
+        if len(regions) > 1:
+            print(
+                "error: --write-haplotypes supports a single -r region",
+                file=sys.stderr,
+            )
+            return 2
+        if not args.sequence_files:
+            print(
+                "error: --write-haplotypes needs --sequence-files",
+                file=sys.stderr,
+            )
+            return 2
+        paths = infer_mod.write_haplotype_fastas(
+            windows, path, _sequence_index(args), args.write_haplotypes,
+            args.sample_name,
+        )
+        print(
+            "Wrote haplotype FASTAs: " + ", ".join(paths), file=sys.stderr
+        )
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="impg_tpu_torch",
@@ -1609,7 +1935,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="bed | bedpe | paf | fasta | fasta+paf | gfa | maf | "
         "fasta-aln | vcf | gfa:<stage>[,key=value...]:... (stages: cut-n, "
         "sort, sgd, smooth, normalize, crush, selfloops; no paf or "
-        "fasta+paf for a .syngt index; gbwt is not yet ported)",
+        "fasta+paf for a .syngt index) | gbwt (a regional syng index at "
+        "-O PREFIX)",
     )
     p_query.add_argument("--poa-scoring", default="1,4,6,2,26,1")
     p_query.add_argument(
@@ -1634,7 +1961,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="Text file listing sequence file paths (alternative to "
         "--sequence-files)",
     )
-    p_query.add_argument("-O", "--output", help="Output file (default stdout)")
+    p_query.add_argument(
+        "-O", "--output",
+        help="Output file (default stdout); prefix for -o gbwt",
+    )
     p_query.add_argument("-x", "--transitive", action="store_true")
     p_query.add_argument("--transitive-dfs", action="store_true")
     p_query.add_argument("-m", "--max-depth", type=int, default=2)
@@ -1897,7 +2227,156 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p_srt.add_argument("--output", help="Output GFA (default stdout)")
     p_srt.set_defaults(func=cmd_sort)
+
+    p_ri = sub.add_parser(
+        "read-index", help="Build a read-syncmer inverted index"
+    )
+    p_ri.add_argument(
+        "-q", "--reads", required=True, action="append",
+        help="FASTA/FASTQ read file(s)",
+    )
+    p_ri.add_argument("-O", "--output", required=True, help="Index prefix")
+    p_ri.add_argument("--syncmer-k", type=int, default=8)
+    p_ri.add_argument("--syncmer-w", type=int, default=55)
+    p_ri.add_argument("--syncmer-seed", type=int, default=7)
+    p_ri.set_defaults(func=cmd_read_index)
+
+    p_inf = sub.add_parser(
+        "infer", help="Windowed allele inference with mosaic stitching"
+    )
+    p_inf.add_argument("-a", "--alignment", required=True,
+                       help="syng index prefix (or .syngt path)")
+    p_inf.add_argument("-p", "--pack", required=True)
+    p_inf.add_argument("-r", "--target-range")
+    p_inf.add_argument(
+        "-b", "--target-bed",
+        help="BED of regions/partitions: one windowed inference per row "
+        "(infer.rs partitions-mode role)",
+    )
+    p_inf.add_argument("-w", "--window", type=int, default=5000)
+    p_inf.add_argument("--ploidy", type=int, default=2)
+    p_inf.add_argument("--top-n", type=int, default=5)
+    p_inf.add_argument("--switch-penalty", type=float, default=0.1)
+    p_inf.add_argument(
+        "--candidate-mode", choices=["overlapping", "spanning"],
+        default="overlapping",
+    )
+    p_inf.add_argument("--sample-name", default="sample")
+    p_inf.add_argument(
+        "--read-index",
+        help=".readidx read-syncmer index for read-link rewards",
+    )
+    p_inf.add_argument("--read-link-weight", type=float, default=0.0)
+    p_inf.add_argument("--min-read-link-anchors", type=int, default=3)
+    p_inf.add_argument(
+        "--gaf",
+        help="syng-gaf-walk read GAF (from `map -o gaf`) for GBWT-MEM "
+        "read-walk rewards (scaled by --read-link-weight)",
+    )
+    p_inf.add_argument(
+        "--write-haplotypes", metavar="PREFIX",
+        help="Write PREFIX_hapN.fa spelling the stitched mosaic "
+        "(needs --sequence-files)",
+    )
+    p_inf.add_argument("--sequence-files", action="append")
+    p_inf.add_argument(
+        "--sequence-list",
+        help="Text file listing sequence file paths (alternative to "
+        "--sequence-files)",
+    )
+    # Accepted as in impg_tpu.cli; the scoring runs on the host.
+    _add_engine_opt(p_inf)
+    p_inf.set_defaults(func=cmd_infer)
+
+    p_srep = sub.add_parser(
+        "syng-repair",
+        help="Validate/repair a .syngt artifact's derived state without "
+        "re-reading source sequences",
+    )
+    p_srep.add_argument(
+        "index", help="syng index prefix (or .syngt path)"
+    )
+    p_srep.add_argument(
+        "--force", action="store_true",
+        help="Rewrite the artifact even when already canonical",
+    )
+    p_srep.set_defaults(func=cmd_syng_repair)
+
+    p_1a = sub.add_parser(
+        "export-1aln",
+        help="Export the alignment index as 1aln tracepoints "
+        "(ASCII, or ONEcode binary container with --binary)",
+    )
+    _add_common_query_opts(p_1a)
+    p_1a.add_argument("--spacing", type=int, default=100)
+    p_1a.add_argument(
+        "--binary", action="store_true",
+        help="Write the ONEcode binary container ('A' records "
+        "footer-indexed for O(1) fetch)",
+    )
+    p_1a.add_argument("-o", "--output", required=True)
+    p_1a.set_defaults(func=cmd_export_1aln)
+
+    p_tpa = sub.add_parser(
+        "export-tpa",
+        help="Export the alignment index as a binary TPA tracepoint "
+        "container",
+    )
+    _add_common_query_opts(p_tpa)
+    p_tpa.add_argument("--spacing", type=int, default=100)
+    p_tpa.add_argument(
+        "--tp-mode", choices=["fastga", "standard"], default="fastga",
+        help="fastga: fixed-query-spacing (diffs, target_delta) pairs; "
+        "standard: target-grid (query_delta, target_delta) pairs",
+    )
+    p_tpa.add_argument("-o", "--output", required=True)
+    p_tpa.set_defaults(func=cmd_export_tpa)
+
+    p_s2g = sub.add_parser(
+        "syng2gfa",
+        help="Dump a syng index as a blunt syncmer graph GFA "
+        "(exact source-spelling paths)",
+    )
+    p_s2g.add_argument("-a", "--alignment", required=True,
+                       help="syng index prefix (or .syngt path)")
+    p_s2g.add_argument("--sequence-files", action="append")
+    p_s2g.add_argument(
+        "--sequence-list",
+        help="Text file listing sequence file paths (alternative to "
+        "--sequence-files)",
+    )
+    p_s2g.set_defaults(_needs_sequences=True)
+    p_s2g.add_argument(
+        "--drop-top-fraction", type=float, default=0.0005,
+        help="Privatize this fraction of highest-frequency syncmers",
+    )
+    p_s2g.add_argument("--max-occurrences", type=int)
+    p_s2g.add_argument(
+        "--gfa-version", choices=["1.0", "1.1"], default="1.0",
+        help="1.1 emits W walk lines instead of P lines",
+    )
+    p_s2g.add_argument(
+        "--mode", choices=["blunt", "raw"], default="blunt",
+        help="blunt: 0M links with truncated pieces; raw: native syng "
+        "overlap graph (full RC-shared syncmer nodes, (k-offset)M links)",
+    )
+    p_s2g.add_argument(
+        "--cut-ns", action="store_true",
+        help="Drop ambiguous N-runs from fetched gap DNA and split emitted "
+        "paths there (parts named NAME|partN); blunt mode only",
+    )
+    p_s2g.add_argument(
+        "--cut-n-min-run", type=int, default=10,
+        help="Minimum N-run length that triggers --cut-ns splitting",
+    )
+    p_s2g.add_argument("-o", "--output", help="Output GFA (default stdout)")
+    p_s2g.set_defaults(func=cmd_syng2gfa)
     return ap
+
+
+# Subcommands that take no device.
+_HOST_COMMANDS = (cmd_index, cmd_export_1aln, cmd_export_tpa, cmd_read_index,
+                  cmd_syng2gfa, cmd_syng_repair, cmd_infer)
 
 
 def _command_of(argv: list[str]) -> str | None:
@@ -1922,23 +2401,9 @@ def main(argv=None, device=None) -> int:
     if command in UNPORTED_COMMANDS:
         _fail(f"`{command}` is not yet ported to impg_tpu_torch "
               "(ported: index, query, stats, partition, refine, similarity, "
-              "syng, map, genotype, sort)")
+              "syng, map, genotype, sort, export-1aln, export-tpa, "
+              "read-index, syng2gfa, syng-repair, infer)")
     args = build_parser().parse_args(argv)
-    # index/query/stats take a list of alignment files (syng, map and
-    # genotype take one syng index).
-    alignments = (_alignment_files(args)
-                  if isinstance(getattr(args, "alignment", None), list)
-                  else [])
-    if args.func is cmd_query and _syng_input(alignments):
-        if args.output_format in UNPORTED_SYNG_FORMATS:
-            _fail(f"a .syngt query with -o {args.output_format} is not yet "
-                  "ported to impg_tpu_torch (ported: -o bed, bedpe, fasta, "
-                  "gfa, gfa:<pipeline>, maf, fasta-aln, vcf)")
-        alignments = []
-    for f in alignments:
-        if f.endswith(UNPORTED_INPUTS):
-            _fail(f"{f}: {os.path.splitext(f)[1]} input is not yet ported to "
-                  "impg_tpu_torch (ported: PAF, PAF.gz; .syngt for query)")
     # --sequence-list: file of sequence paths, normalized into
     # args.sequence_files so every downstream path sees one flag
     # (SequenceOpts::resolve_sequence_files, main.rs:4126).
@@ -1987,8 +2452,8 @@ def main(argv=None, device=None) -> int:
         os.environ.setdefault("IMPG_HE_PROF", "1")
     dev = torch.device("cuda", 0) if device is None else torch.device(device)
     try:
-        if args.func is cmd_index:
-            return cmd_index(args)
+        if args.func in _HOST_COMMANDS:
+            return args.func(args)
         return args.func(args, dev)
     except (FileNotFoundError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)

@@ -1,8 +1,10 @@
 """The IMPG index: per-target sorted directed-interval arrays + run arena.
 
 The port's copy of impg_tpu/index/impg_index.py (tests/test_torch_host.py
-holds the two equal), for PAF and PAF.gz input; .1aln/.tpa input is not yet
-ported and raises.
+and tests/test_torch_onealn.py hold the two equal), for PAF, PAF.gz, .1aln
+and .tpa input.  As in impg_tpu, the `.impgt` cache is keyed by the paths and
+their mtimes alone: a tracepoint file first ingested without sequences
+keeps its approximate runs when it is later loaded with `seq_fetch`.
 
 Functional equivalent of the reference index (impg.rs:394 `Impg` over
 per-target coitrees).  Instead of cache-oblivious interval trees we keep the
@@ -59,16 +61,25 @@ class ImpgIndex:
     # ── construction ─────────────────────────────────────────────────
     @classmethod
     def from_paf_files(
-        cls, paths: list[str], bidirectional: bool = True
+        cls, paths: list[str], bidirectional: bool = True, seq_fetch=None
     ) -> "ImpgIndex":
         seq_index = SequenceIndex()
         parts = []
         for p in paths:
-            if p.endswith((".1aln", ".tpa")):
-                raise ValueError(
-                    f"{p}: .1aln/.tpa input is not yet ported to impg_tpu_torch"
+            if p.endswith(".1aln"):
+                from impg_tpu_torch.io import onealn as onealn_mod
+
+                recs, _spacing = onealn_mod.parse_1aln(
+                    p, seq_index, seq_fetch
                 )
-            parts.append(paf_mod.parse_paf_file(p, seq_index))
+                parts.append(recs)
+            elif p.endswith(".tpa"):
+                from impg_tpu_torch.io import tpa as tpa_mod
+
+                recs, _spacing = tpa_mod.parse_tpa(p, seq_index, seq_fetch)
+                parts.append(recs)
+            else:
+                parts.append(paf_mod.parse_paf_file(p, seq_index))
         if parts:
             run_off_parts = []
             base = 0
@@ -285,7 +296,7 @@ def index_path_for(paf_paths: list[str]) -> str:
 
 def load_or_build(
     paf_paths: list[str], index_path: str | None = None, force: bool = False,
-    threads: int = 1,
+    seq_fetch=None, threads: int = 1,
 ) -> ImpgIndex:
     """Load a cached index if fresh, else build from the PAFs and save.
 
@@ -295,13 +306,14 @@ def load_or_build(
 
     `threads > 1` builds per-file artifacts concurrently (the reference's
     rayon par_iter over files, main.rs:11189; the native parser and numpy
-    release the GIL). Only the multi-file fan-out is threaded.
+    release the GIL). Only the multi-file fan-out is threaded, and only
+    without a shared `seq_fetch` handle.
     """
     if index_path is None and len(paf_paths) > 1:
         # Per-file artifact caching (reference: multi_impg.rs): each file
         # keeps its own `<file>.impgt`, so growing a file set only builds
         # the new files; the union merges in memory.
-        if threads > 1:
+        if threads > 1 and seq_fetch is None:
             from concurrent.futures import ThreadPoolExecutor
 
             with ThreadPoolExecutor(
@@ -314,7 +326,10 @@ def load_or_build(
                     )
                 )
         else:
-            parts = [load_or_build([p], force=force) for p in paf_paths]
+            parts = [
+                load_or_build([p], force=force, seq_fetch=seq_fetch)
+                for p in paf_paths
+            ]
         return ImpgIndex.merge(parts, list(paf_paths))
     import logging
     import time
@@ -337,7 +352,7 @@ def load_or_build(
             except Exception:
                 pass  # fall through to rebuild
     t0 = time.perf_counter()
-    idx = ImpgIndex.from_paf_files(paf_paths)
+    idx = ImpgIndex.from_paf_files(paf_paths, seq_fetch=seq_fetch)
     log.info(
         "built index from %d file(s): %d records, %d runs in %.3fs",
         len(paf_paths), len(idx.records), int(idx.arena.n_ops),

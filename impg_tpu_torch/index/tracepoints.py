@@ -70,21 +70,17 @@ class TracepointArena:
         g = t_start[rec_of] + local_i * spacing
         g = np.minimum(g, t_end[rec_of])
 
-        # Locate the run containing each boundary (per-record binary search
-        # over the arena's cum_t, emulated with a global search on offsets).
+        # Locate the run containing each boundary: j = the last run of the
+        # record with cum_t <= g, one search a record (cum_t ascends within
+        # a record's runs; impg_tpu searches every boundary at once in
+        # log2(n_runs) passes, with the same result).
         op_off = records.op_off[rec_of]
-        op_cnt = records.op_cnt[rec_of].astype(np.int64)
-        # searchsorted per segment: find j = last run with cum_t <= g.
         lo = np.zeros(total, np.int64)
-        hi = op_cnt.copy()
-        for _ in range(max(int(np.ceil(np.log2(arena.runs.size + 2))), 1)):
-            mid = (lo + hi) // 2
-            safe = np.clip(op_off + mid, 0, max(arena.runs.size - 1, 0))
-            pred = np.where(
-                mid < op_cnt, arena.cum_t[safe].astype(np.int64) <= g, False
-            )
-            lo = np.where(pred, mid + 1, lo)
-            hi = np.where(pred, hi, mid)
+        bounds = zip(records.op_off.tolist(), records.op_cnt.tolist(),
+                     seg_off.tolist(), n_bound.tolist())
+        for a, c, b, nb in bounds:
+            lo[b:b + nb] = np.searchsorted(arena.cum_t[a:a + c],
+                                           g[b:b + nb], side="right")
         j = np.clip(lo - 1, 0, None)
         jg = np.clip(op_off + j, 0, max(arena.runs.size - 1, 0))
 

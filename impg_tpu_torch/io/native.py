@@ -1,16 +1,18 @@
 """ctypes binding to the port's native C++ host library (built on demand).
 
-The port's copy of impg_tpu/io/native.py, trimmed to what the query path
-needs: the library is built from the seven sources in `impg_tpu_torch/native/`
-(the PAF parser, the visited bookkeeping of the BFS, the C++ reference
-engine, the closed-syncmer extractor, the GFA tokenizer, the path-spelling,
-token-stream and priority-topological-sort functions of the GFA layer, and
-the partial-order aligner of the region outputs), copies of
+The port's copy of impg_tpu/io/native.py: the library is built from the
+eleven sources in `impg_tpu_torch/native/` (the PAF parser, the visited
+bookkeeping of the BFS, the C++ reference engine, the closed-syncmer
+extractor, the GFA tokenizer, the path-spelling, token-stream and
+priority-topological-sort functions of the GFA layer, the partial-order
+aligner of the region outputs, the pairwise aligner, seqwish's union-find
+and emitter, and the syncmer-walk GBWT of syng/gbwt.py), copies of
 impg_tpu/native/'s files of the same names, with g++ at first use into
 `impg_tpu_torch/build/`.  `load()` binds the `impg_paf_*`, `sx_*`,
-`impg_gfa_*`, `impg_spell_steps`, `impg_concat_tokens*` and
-`impg_topo_priority` symbols; query/engine.py binds `vb_*`,
-query/host_native.py `he_*` and graph/poa.py `impg_poa_*`.
+`impg_gfa_*`, `impg_spell_steps`, `impg_concat_tokens*`,
+`impg_topo_priority`, aligner, seqwish and `impg_gbwt_*` symbols;
+query/engine.py binds `vb_*`, query/host_native.py `he_*` and graph/poa.py
+`impg_poa_*`.
 
 Falls back gracefully: `load()` returns None when the shared library is
 missing and cannot be built, and io/paf.py then uses the pure-Python parser
@@ -30,7 +32,7 @@ import numpy as np
 
 _SRC_NAMES = ("paf_parser.cpp", "visited.cpp", "host_engine.cpp",
               "syncmer.cpp", "gfa_parser.cpp", "spellc.cpp", "poa.cpp",
-              "align.cpp", "seqwish_uf.cpp", "seqwish_emit.cpp")
+              "gbwt.cpp", "align.cpp", "seqwish_uf.cpp", "seqwish_emit.cpp")
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _NATIVE_DIR = os.path.join(_PKG_DIR, "native")
 _BUILD_DIR = os.path.join(_PKG_DIR, "build")
@@ -231,8 +233,35 @@ def load():
 
     _bind_gfa(lib)
     _bind_align_seqwish(lib)
+    _bind_gbwt(lib)
     _lib = lib
     return _lib
+
+
+def _bind_gbwt(lib) -> None:
+    """ctypes signatures of the syncmer-walk GBWT (gbwt.cpp)."""
+    i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+    lib.impg_gbwt_build.restype = ctypes.c_void_p
+    lib.impg_gbwt_build.argtypes = [ctypes.c_int64, i64p, i32p, u64p,
+                                    ctypes.c_int32]
+    lib.impg_gbwt_destroy.restype = None
+    lib.impg_gbwt_destroy.argtypes = [ctypes.c_void_p]
+    lib.impg_gbwt_num_steps.restype = ctypes.c_int64
+    lib.impg_gbwt_num_steps.argtypes = [ctypes.c_void_p]
+    lib.impg_gbwt_node_count.restype = ctypes.c_int64
+    lib.impg_gbwt_node_count.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+    lib.impg_gbwt_match_walk.restype = ctypes.c_int64
+    lib.impg_gbwt_match_walk.argtypes = [
+        ctypes.c_void_p, i32p, u64p, ctypes.c_int64, i64p, i64p, i64p,
+    ]
+    lib.impg_gbwt_locate_segment.restype = ctypes.c_int64
+    lib.impg_gbwt_locate_segment.argtypes = [
+        ctypes.c_void_p, i32p, u64p, ctypes.c_int64, ctypes.c_int64,
+        i32p, i64p, i8p, ctypes.c_int64,
+    ]
 
 
 def _bind_gfa(lib) -> None:

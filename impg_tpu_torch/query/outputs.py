@@ -2,8 +2,8 @@
 12351).
 
 The port's copy of impg_tpu/query/outputs.py (tests/test_torch_host.py and
-tests/test_torch_sequence.py hold the two equal).  The regional syng
-(`-o gbwt`) writers are not yet ported: the port's CLI refuses that format.
+tests/test_torch_sequence.py hold the two equal), the regional syng (`-o
+gbwt`) writers included (tests/test_torch_syng_tools.py).
 
 Formatting details matched for bit-identical output:
   - BED: merged on the query axis (gap-2D first when rows lack CIGARs, i.e.
@@ -201,3 +201,50 @@ def write_paf(
             f"\t{m}\t{bl}\t255\tgi:f:{_fmt_f32(gci)}\tbi:f:{_fmt_f32(bi)}"
             f"\tcg:Z:{cigar_str}\tan:Z:{name}\n"
         )
+
+
+def collect_region_sequences(
+    seq_index: SequenceIndex,
+    results: list[Row],
+    sequence_index,
+    merge_distance: int,
+) -> list[tuple[str, bytes]]:
+    """Fetch the merged result intervals as named sequences
+    `genome:start-end(strand)` — the input set for a regional syng index
+    (reference main.rs:7188 `-o gbwt` interval fetch)."""
+    merge_mod.merge_query_adjusted_intervals(results, merge_distance, False)
+    sequences = []
+    for row in results:
+        qname = seq_index.get_name(row.q_id)
+        if row.q_first <= row.q_last:
+            start, end, strand = row.q_first, row.q_last, "+"
+        else:
+            start, end, strand = row.q_last, row.q_first, "-"
+        seq = sequence_index.fetch_sequence(qname, start, end)
+        sequences.append((f"{qname}:{start}-{end}({strand})", seq))
+    return sequences
+
+
+def write_region_gbwt(
+    sequences: list[tuple[str, bytes]],
+    prefix: str,
+    k: int | None = None,
+    w: int | None = None,
+    seed: int | None = None,
+) -> str:
+    """Build + save a regional syng index over fetched region sequences
+    (syng.rs:5263 build_region_gbwt).  The reference writes ONEcode
+    `.1khash`/`.1gbwt` containers; here the single `.syngt` artifact
+    carries the occurrence table the GBWT-lite derives its walk structure
+    from (syng/gbwt.py), so one file serves both roles."""
+    from impg_tpu_torch.syng.index import SyngIndex
+
+    kwargs = {}
+    if k is not None:
+        kwargs["k"] = k
+    if w is not None:
+        kwargs["w"] = w
+    if seed is not None:
+        kwargs["seed"] = seed
+    region_index = SyngIndex.build(sequences, **kwargs)
+    return region_index.save(prefix)

@@ -157,9 +157,10 @@ def test_native_library_is_the_ports_own():
                 "impg_align_prefix", "uf_create", "uf_union_runs",
                 "impg_seqwish_emit"):
         assert hasattr(lib, sym), sym
-    # Only the ported paths' sources are built in: not GBWT's.
-    for sym in ("impg_gbwt_build",):
-        assert not hasattr(lib, sym), sym
+    # The syng tools' GBWT is built in too (the eleventh source).
+    for sym in ("impg_gbwt_build", "impg_gbwt_match_walk",
+                "impg_gbwt_locate_segment"):
+        assert hasattr(lib, sym), sym
 
 
 @pytest.fixture(scope="module")
@@ -180,6 +181,25 @@ def twin_indexes(tmp_path_factory, texts):
         b = r.randint(a + 1500, min(seqs[n], a + 8000))
         targets.append((ref.seq_index.get_id(n), a, b))
     return ref, got, targets
+
+
+@pytest.mark.parametrize("spacing", [1, 100, 997])
+def test_tracepoint_build_equal_at_scale_shape(spacing):
+    """The port's build searches each record's runs once (impg_tpu: every
+    boundary at once in log2(n_runs) passes): the same arrays on the
+    smoke's yeast-fitted index shape, records of hundreds of runs on both
+    strands, a record with no runs among them."""
+    from impg_tpu_torch import synth
+
+    index = synth.realistic_directed_index(seed=4, n_seqs=40,
+                                           seq_len=20_000, n_aln=120)
+    index.records.op_cnt[3] = 0
+    rt = jax_tp.TracepointArena.build(index.records, index.arena, spacing)
+    gt = port_tp.TracepointArena.build(index.records, index.arena, spacing)
+    assert set(index.records.strand.tolist()) == {0, 1}
+    for f in rt.FIELDS:
+        g, r = getattr(gt, f), getattr(rt, f)
+        assert g.dtype == r.dtype and np.array_equal(g, r), f
 
 
 @pytest.mark.parametrize("spacing", [100, 37])
@@ -460,27 +480,21 @@ def test_cli_index_then_query(cli_dirs, capsys):
          "sequence_files", "1aln", "tpa", "syngt"],
 )
 def test_cli_refuses_unported(capsys, argv):
-    """Out-of-slice inputs exit 2 before any input is read (the inputs here
-    do not exist): `.syngt`, `.1aln` and `.tpa` alignments of partition,
-    similarity, refine, stats and index, and `.1aln` of query.  A `.syngt`
-    query's FASTA and sequence files and `gfa:` pipelines are ported: on
-    the same missing input they give impg_tpu.cli's status and message."""
-    if argv[0] == "query" and not argv[2].endswith(".1aln"):
-        res = []
-        for main, kw in ((torch_cli.main, {"device": "cpu"}),
-                         (jax_cli.main, {})):
-            capsys.readouterr()
-            out = io.StringIO()
-            with contextlib.redirect_stdout(out):
-                rc = main(argv, **kw)
-            res.append((rc, out.getvalue(), capsys.readouterr().err))
-        assert res[0] == res[1] and res[0][0] in (1, 2)
-        assert "not yet ported" not in res[0][2]
-        return
-    with pytest.raises(SystemExit) as exc:
-        torch_cli.main(argv, device="cpu")
-    assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    """These were refused until the port took them: `.syngt`, `.1aln` and
+    `.tpa` alignments of partition, similarity, refine, stats, index and
+    query, a `.syngt` query's FASTA and sequence files, and `gfa:`
+    pipelines.  On the same missing input (the inputs here do not exist)
+    each now gives impg_tpu.cli's status and message."""
+    res = []
+    for main, kw in ((torch_cli.main, {"device": "cpu"}),
+                     (jax_cli.main, {})):
+        capsys.readouterr()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = main(argv, **kw)
+        res.append((rc, out.getvalue(), capsys.readouterr().err))
+    assert res[0] == res[1] and res[0][0] in (1, 2)
+    assert "not yet ported" not in res[0][2]
 
 
 def test_without_native_library_python_bookkeeping_runs(twin_indexes,

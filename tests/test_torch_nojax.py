@@ -14,7 +14,11 @@ engines, `query -o fasta|gfa|vcf` and `similarity --pca` (the sequence
 layer and the POA) on the device and native engines, `query -o gfa
 --gfa-engine pggb` (alignment, seqwish and the pggb chain) and a `-o gfa:`
 pipeline, `.syngt` queries with sequence files (chain-end refinement, a
-region graph); and `-o gbwt` of a `.syngt` query, still refused, exits 2."""
+region graph); the tracepoint files (`export-1aln --binary` and
+`export-tpa`, then `query -x` on each, approximate and with sequences, on
+the device engine); `-o gbwt` of a PAF and of a `.syngt` query; and the
+syng tools (`read-index`, `infer` with `--gaf`, `--read-index` and
+`--write-haplotypes`, `syng2gfa`, `syng-repair`)."""
 
 import os
 import random
@@ -192,14 +196,42 @@ for argv, out in (
     assert rc == 0, argv
     with open(out) as fh:
         assert fh.read().count("\n") >= 3, out
-try:
-    impg_tpu_torch.cli.main(["query", "-a", "pan_host.syngt", "-r",
-                             "hap0:0-3000", "-d", "100", "-o", "gbwt", "-O",
-                             "x", "--sequence-files", fasta], device="cpu")
-except SystemExit as e:
-    assert e.code == 2
-else:
-    raise AssertionError("-o gbwt of a .syngt query not refused")
+import impg_tpu_torch.io.onealn
+import impg_tpu_torch.io.tpa
+paf = sys.argv[2]
+for argv, out in (
+        (["export-1aln", "-a", paf, "--binary", "-o", "c.1aln"], "c.1aln"),
+        (["export-tpa", "-a", paf, "-o", "c.tpa"], "c.tpa")):
+    assert impg_tpu_torch.cli.main(argv, device="cpu") == 0, argv
+    for extra in ([], ["--sequence-files", chain_fa, "-I"]):
+        assert impg_tpu_torch.cli.main(
+            ["query", "-a", out, "-r", "ref:500-2500", "-d", "100", "-x",
+             "-O", "tp.bed", "--compute-engine", "device", *extra],
+            device="cpu") == 0, out
+        with open("tp.bed") as fh:
+            assert fh.read().count("\n") >= 2, out
+import impg_tpu_torch.commands.infer
+import impg_tpu_torch.syng.gbwt
+import impg_tpu_torch.syng.read_index
+import impg_tpu_torch.syng.syng2gfa
+runs = (
+    (["query", "-a", paf, "-r", "ref:500-2500", "-d", "100", "-x", "-o",
+      "gbwt", "-O", "region_paf", "--sequence-files", chain_fa,
+      "--compute-engine", "device"], "region_paf.syngt"),
+    (["query", "-a", "pan_host.syngt", "-r", "hap0:0-3000", "-d", "100",
+      "-o", "gbwt", "-O", "region_syng", "--sequence-files", fasta],
+     "region_syng.syngt"),
+    (["read-index", "-q", reads, "-O", "r"], "r.readidx"),
+    (["infer", "-a", "pan_host.syngt", "-p", "s_host.packt", "-r",
+      "hap0:0-5000", "-w", "1000", "--gaf", "s.gaf", "--read-index",
+      "r.readidx", "--read-link-weight", "0.5", "--write-haplotypes", "dip",
+      "--sequence-files", fasta], "dip_hap1.fa"),
+    (["syng2gfa", "-a", "pan_host.syngt", "--sequence-files", fasta, "-o",
+      "pan.gfa"], "pan.gfa"),
+    (["syng-repair", "pan_host.syngt", "--force"], "pan_host.syngt"))
+for argv, out in runs:
+    assert impg_tpu_torch.cli.main(argv, device="cpu") == 0, argv
+    assert os.path.getsize(out) > 0, out
 loaded = [m for m, mod in sys.modules.items() if blocked(m) and mod is not None]
 assert not loaded, loaded
 assert not tried, tried

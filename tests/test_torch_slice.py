@@ -143,12 +143,23 @@ def test_cli_resolver_routes(cli_inputs, capsys, monkeypatch):
     ids=lambda a: a[0],
 )
 def test_cli_rejects_unported_device_commands(capsys, argv, spec):
-    """The syng-side commands' mesh engine, and `infer` whole, are not
-    ported: the port's CLI refuses them before any input is read.  `syng`,
-    `map` and `genotype` run on the device engine (here the CPU twins), so
-    they get as far as their missing input or argument."""
+    """The syng-side commands' mesh engine is not ported: the port's CLI
+    refuses it before any input is read.  `syng`, `map` and `genotype` run
+    on the device engine (here the CPU twins), so they get as far as their
+    missing input or argument.  `infer` is ported and, as in impg_tpu,
+    scores on the host whatever `--compute-engine` says: under either
+    engine it gives impg_tpu.cli's status and message."""
     original = jax_cli._resolve_compute_engine
-    if spec == "device" and argv[0] in ("syng", "map", "genotype"):
+    if argv[0] == "infer":
+        res = []
+        for main, kw in ((torch_cli.main, {"device": "cpu"}),
+                         (jax_cli.main, {})):
+            capsys.readouterr()
+            rc = main(argv + ["--compute-engine", spec], **kw)
+            res.append((rc, capsys.readouterr()))
+        assert res[0] == res[1] and res[0][0] == 2
+        assert "not yet ported" not in res[0][1].err
+    elif spec == "device" and argv[0] in ("syng", "map", "genotype"):
         rc = torch_cli.main(argv + ["--compute-engine", spec], device="cpu")
         err = capsys.readouterr().err
         assert rc in (1, 2) and err.startswith("error:")

@@ -195,12 +195,27 @@ def test_cli_syngt_errors_equal_jax(trans_panel, capsys, argv):
 
 
 def test_cli_syngt_gbwt_exits_2(trans_panel, capsys):
-    """The regional syng index stays unported: refused before any input is
-    read."""
+    """The regional syng index (`-o gbwt` of a `.syngt` query, chained with
+    sequence files refining the chain ends) was refused until the port took
+    it: now its status and stderr equal impg_tpu.cli's, and each writes a
+    `.syngt` of the same arrays (member bytes; the zip carries times)."""
+    import zipfile
+
     tmp, fa, syngt = trans_panel
-    with pytest.raises(SystemExit) as exc:
-        torch_cli.main(["query", "-a", syngt, "-r", "ref:0-100", "-d", "10",
-                        "-o", "gbwt", "-O", str(tmp / "g"),
-                        "--sequence-files", fa], device="cpu")
-    assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    res, members = [], []
+    for side, (main, kw) in zip(("jax", "port"), (
+            (jax_cli.main, {}), (torch_cli.main, {"device": "cpu"}))):
+        prefix = str(tmp / f"g_{side}")
+        capsys.readouterr()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = main(["query", "-a", syngt, "-r", "ref:2000-6000", "-d",
+                       "100", "-x", "-o", "gbwt", "-O", prefix,
+                       "--sequence-files", fa], **kw)
+        res.append((rc, out.getvalue(),
+                    capsys.readouterr().err.replace(prefix, "<prefix>")))
+        with zipfile.ZipFile(prefix + ".syngt") as z:
+            members.append({n: z.read(n) for n in sorted(z.namelist())})
+    assert res[0] == res[1] and res[0][0] == 0
+    assert "Wrote region syng index" in res[0][2]
+    assert members[0] == members[1]
