@@ -39,9 +39,9 @@ just after, and fails unless every kernel of that path launched:
              TorchDeviceEngine: BED bytes equal, the same walks, K-B, K-C
              and K-D launched; K-B at a walk's depth-1 frontier (one query)
              and at the median depth-2 frontier of the partition's walks
-             (`[3 kernels] windows`); the first quarter of the walks of
+             (`[3 kernels] windows`); the first eighth of the walks of
              one more device run under cProfile and torch.profiler
-  4. refine  `run_refine` with transitive walks (`refine -x`) over 64 seeds,
+  4. refine  `run_refine` with transitive walks (`refine -x`) over 32 seeds,
              native against the resident engine: records equal
   3. kernels K-E project_approx against its twin on the first lane chunk
              of the approximate depth-2 frontier, lean and full fields, and
@@ -90,10 +90,10 @@ just after, and fails unless every kernel of that path launched:
              (synth.variation_graph): seconds per stage, K-I launches, peak
              device memory, all 90 spellings unchanged, segments 1..N in a
              topological order, the layout's Spearman rho against path 0;
-             then one epoch of the host numpy loop on the same graph
+             then an eighth of an epoch of the host numpy loop on it
   4. genotype graph  `genotype_graph` on that graph (impg_tpu_torch/
-             genotype/graph.py): 50,000 reads of hap3 + hap16 (a quarter of
-             a 30x sample's) mapped to the
+             genotype/graph.py): 25,000 reads of hap3 + hap16 (an eighth
+             of a 30x sample's) mapped to the
              90 path walks on the host, the candidates x segments matrix,
              the cuBLAS products and K-H (top 10), seconds per stage, K-H's
              launches equal to its calls, the device's idle share, the head
@@ -120,9 +120,9 @@ just after, and fails unless every kernel of that path launched:
   4. graph pipeline  the region graph engines and post-processing stages
              through the CLI on the same panels, walked on the card as
              above (the walk, alignment and induction, POA, each stage and
-             the rest timed): `-o gfa --gfa-engine pggb` and `-o
-             gfa:cut-n=100:sort:sgd:smooth,block-len=900:normalize:crush:
-             selfloops` over 2 of those 2 kb windows; `--gfa-engine
+             the rest timed): `-o gfa --gfa-engine pggb` over 2 of those
+             2 kb windows and `-o gfa:cut-n=100:sort:sgd:smooth,block-len=
+             900:normalize:crush:selfloops` over the first; `--gfa-engine
              seqwish|syng-native`, `-o vcf --gfa-engine seqwish` and `-o
              gfa:sgd --gfa-engine pggb` over 3 windows of the cut panel;
              every window's walk rows equal to the native engine's, the
@@ -133,14 +133,14 @@ just after, and fails unless every kernel of that path launched:
              `maf`, `fasta-aln`, `vcf`, `gfa:sort`) equal on the
              device-built and the host-built index
   4. tracepoint files  `.1aln` and `.tpa` through the CLI: an index of
-             10,000 alignments written with write_1aln (ASCII, binary) and
+             6,000 alignments written with write_1aln (ASCII, binary) and
              write_tpa (fastga, standard), each ingested by `index` without
              sequences and walked on the card (`query -x` of the 256 seeds:
              K-B, K-C, K-D; `--approximate`: K-B, K-E, K-D; `stats -b` of
              K-A's regions: K-A) against the native engine (the host's for
              stats), bytes equal, the ASCII and binary files' indexes equal;
              `export-1aln --binary` and `export-tpa` of the sequence
-             panel's first 16 alignments, `query -x -o bed
+             panel's first 8 alignments, `query -x -o bed
              --sequence-files` over the 64 windows of 10 kb, device against
              native (rows off the PAF index's counted); `query -x -o gbwt`
              over the 4 windows of 2 kb, device against native, and `-o
@@ -152,6 +152,33 @@ just after, and fails unless every kernel of that path launched:
              `read-index`, `map -o pack|gaf` on the card (K-G) and on the
              host, and `infer -w 1000 --gaf --read-index
              --write-haplotypes` from each: report and haplotypes equal
+  4. graph toolbox  every GFA toolbox command through the port's CLI in
+             this process, on the host as in impg_tpu, each line with its
+             wall s, input size, the host stages that took most of it, the
+             card's busy ms and idle share (torch.profiler) and K-I's
+             launches beside pggb's Ygs samples against 5e8: after `[4
+             genotype graph]`, `graph-report` of the sort graph (its counts
+             equal its columns'), `map --graph -o gaf` of 10,000
+             of its reads onto the graph cut to paths hap0-hap3, hap16 and
+             `project` of that GAF (every record retained); after `[4 syng tools]`, on `[4 graph pipeline]`'s
+             two pggb window graphs `normalize`, `normalize-self-loops`
+             (and `--diagnose`), `smooth`, `crush` (each output spelling
+             its input's paths), `render-graph`, `gfa2vcf` (anchors,
+             flubbles), `graph-report` (md, json, tsv, `--flubbles`;
+             report_columns equal to report), `lace --fill-gaps` of the two
+             graphs (laced paths spelling the panel between their ends) and
+             of their VCFs (the records lifted back exactly); on the cut
+             panel `align` (and `--job-list`, `--run-joblist` of its first
+             4 jobs in subprocesses, each pair file equal to align's rows),
+             `graph` poa (its first 8 sequences), seqwish, pggb, `-a
+             align.paf` (equal to seqwish aligning itself) and
+             `--partition-size 2000` (every path spelling its input); `agz
+             create|list` of the panel (every contig fetched back equal)
+             and `query -o fasta` of 16 of the 10 kb windows through the
+             archive (K-B, K-C, K-D; bytes equal to the FASTA-backed run);
+             `render -x --render-graph` of a 2 kb window, of the panel with
+             the poa engine and of the cut panel with pggb (the manifest
+             naming every file of the bundle)
   5. cli     impg_tpu_torch.cli's query -x -o bed|paf, stats -b, query -x
              --approximate -o bed, query -x -o bed and stats -b under
              IMPG_HBM_BUDGET_BYTES=16384 (paged), partition -o bed|paf (the
@@ -182,6 +209,7 @@ bookkeeping.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import cProfile
 import dataclasses
@@ -266,11 +294,12 @@ PATH_SGD_MOVE_TOL = 1e-4
 PATH_SGD_SPAN_TOL = 1e-4
 # K-H's check at bench.py's genotype_e2e shape.
 # [4 genotype graph]: the truth pair (founders 3 and 4 of the graph's 6)
-# and its reads, drawn from the two paths' spellings: a quarter of a 30x
-# sample's reads (7.5x), since read mapping on the host is most of the
-# phase and the smoke's clock is bounded.
+# and its reads, drawn from the two paths' spellings: an eighth of a 30x
+# sample's reads (3.75x; a quarter until [4 graph toolbox] took its share
+# of the smoke's clock), since read mapping on the host is most of the
+# phase.
 GRAPH_TRUTH = ("hap3", "hap16")
-GRAPH_READS = N_READS // 4
+GRAPH_READS = N_READS // 8
 GRAPH_READ_SEED = 21
 # Neighbouring similarities closer than this are float32 ties: the device
 # ranking is held to the host's float64 one as sets within them.
@@ -1280,12 +1309,13 @@ def phase_paged(index, targets, front, native, kernels, D, host):
 PART_WINDOW = 50_000
 PART_MERGE = 1_000
 # `[4 partition profile]` profiles the first 1/PART_PROFILE_SHARE of the
-# partition's walks: per-walk costs show in a quarter as in the whole, and
-# the smoke's clock is bounded.
-PART_PROFILE_SHARE = 4
+# partition's walks: per-walk costs show in an eighth as in the whole, and
+# the smoke's clock is bounded (a quarter until [4 graph toolbox]).
+PART_PROFILE_SHARE = 8
 # `refine -x` over the first seeds: flank steps of 10 kb up to half the
-# locus, ranges merged within 1 kb.
-REFINE_REGIONS = 64
+# locus, ranges merged within 1 kb (64 seeds until [4 graph toolbox] took
+# its share of the smoke's clock).
+REFINE_REGIONS = 32
 REFINE_STEP = 10_000
 
 
@@ -2005,17 +2035,28 @@ def phase_cli(tmp: str, kernels) -> None:
         "refine -x": (["refine", "-a", paf, "-r", "ref:2000-8000", "-d",
                        "100", "-x"], {}, "resident", exact),
     }
+    # The host runs are subprocesses that depend on nothing here: run them
+    # four at a time, before the device runs, for the smoke's clock.
+    outs = [[os.path.join(tmp, f"out{i}_{side}") for side in ("h", "d")]
+            for i in range(len(checks))]
+
+    def host_ref(i, argv):
+        return on_host([a.format(out=outs[i][0]) for a in argv])
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=4) as ex:
+        refs = [ex.submit(host_ref, i, argv)
+                for i, (argv, *_rest) in enumerate(checks.values())]
+        refs = [f.result() for f in refs]
     parts = []
     for i, (label, (argv, env, kind, path)) in enumerate(checks.items()):
         # Partition writes into --output-folder: its files are compared
         # with the standard output.
-        outs = [os.path.join(tmp, f"out{i}_{side}") for side in ("h", "d")]
-        ref = on_host([a.format(out=outs[0]) for a in argv])
+        ref, (out_h, out_d) = refs[i], outs[i]
         dev, launches, engines = on_device(
-            [a.format(out=outs[1]) for a in argv], env)
-        if os.path.isdir(outs[0]):
-            ref += _folder_bytes(outs[0]).decode()
-            dev += _folder_bytes(outs[1]).decode()
+            [a.format(out=out_d) for a in argv], env)
+        if os.path.isdir(out_h):
+            ref += _folder_bytes(out_h).decode()
+            dev += _folder_bytes(out_d).decode()
         if dev != ref or len(dev.splitlines()) < 2:
             raise AssertionError(f"{label}: device output != host output")
         if len(engines) != 1:
@@ -2437,11 +2478,13 @@ def phase_sort(text, gc, inputs, kernels, sortgfa, co, gfa_columns) -> dict:
     rho = _spearman(walk.astype(np.float64),
                     np.arange(walk.size, dtype=np.float64))
     n_steps = node.size
+    # An eighth of one epoch of the host numpy loop (a sample a step; 27.1
+    # s for the whole epoch on an H100 host), for the smoke's clock.
     t0 = time.perf_counter()
     step_node, step_pos_c, bounds = sortgfa.sgd_inputs(gc)
     sortgfa._sgd_order_core(gc.n_segs, step_node, step_pos_c, bounds,
-                            epochs=1, backend="numpy")
-    host_epoch_s = time.perf_counter() - t0
+                            epochs=1, batch_per_step=1, backend="numpy")
+    host_eighth_s = time.perf_counter() - t0
     print(f"[4 sort] segments={gc.n_segs} steps={n_steps} "
           f"samples_per_epoch={8 * n_steps} epochs=30 wall_s={wall:.3f} "
           + " ".join(f"{k}_s={v:.3f}" for k, v in times.items())
@@ -2449,9 +2492,9 @@ def phase_sort(text, gc, inputs, kernels, sortgfa, co, gfa_columns) -> dict:
           f"{peak} spellings_equal={len(after)}/{SORT_HAPS} "
           f"renumbered_1_to_N_topological=True "
           f"spearman_rank_vs_path0={rho:.6f} "
-          f"host_numpy_one_epoch_s={host_epoch_s:.3f} "
-          f"(extrapolated, not run: 30 epochs "
-          f"{30 * host_epoch_s:.1f}s)", flush=True)
+          f"host_numpy_eighth_epoch_s={host_eighth_s:.3f} "
+          f"(extrapolated, not run: an epoch {8 * host_eighth_s:.1f}s, 30 "
+          f"epochs {240 * host_eighth_s:.1f}s)", flush=True)
     return launches
 
 
@@ -3031,8 +3074,9 @@ def phase_sequence(tmp: str, kernels, synth) -> dict:
 # walked on the card as [4 sequence]'s POA formats are.  All-vs-all
 # alignment of a 2 kb window of the full panel aligns 9,312 ordered pairs of
 # its 97 sequences on the host, one by one: the full panel runs the pggb engine
-# (alignment, seqwish and the whole chain) and the whole `gfa:` pipeline
-# over POA on the first GP_FULL_WINDOWS of [4 sequence]'s 2 kb windows; the
+# (alignment, seqwish and the whole chain) on the first GP_FULL_WINDOWS of
+# [4 sequence]'s 2 kb windows and the whole `gfa:` pipeline over POA on
+# the first of them; the
 # seqwish, syng-native, vcf and `gfa:sgd` over pggb runs and the `.syngt`
 # queries run on [4 sequence]'s cut panel (25 sequences, 600 pairs).
 GP_FULL_WINDOWS = 2
@@ -3075,7 +3119,7 @@ def graph_stages() -> list:
             (selfloops, "normalize_self_loops", "selfloops")]
 
 
-def phase_graph_pipeline(tmp: str, kernels, seq: dict) -> dict:
+def phase_graph_pipeline(tmp: str, kernels, seq: dict) -> tuple:
     """`query -o gfa|vcf --gfa-engine seqwish|syng-native|pggb`, `-o
     gfa:<stages>` and `.syngt` region outputs through the port's CLI in
     this process, on [4 sequence]'s panels.  Each device run has the launch
@@ -3089,7 +3133,9 @@ def phase_graph_pipeline(tmp: str, kernels, seq: dict) -> dict:
     bytes), then each query's output on it equal to that on the host-built
     index (`-x -o bed` with sequence files: refined chain ends), no kernel
     launched (the syng walk is the host's).  Returns the two syng index
-    files, for `[4 tracepoint files]` and `[4 syng tools]`."""
+    files by engine, for `[4 tracepoint files]` and `[4 syng tools]`, and
+    the pggb engine's window graphs of the full panel (`pggb_gfas`, one GFA
+    text a window of `pggb_windows`), for `[4 graph toolbox]`."""
     from impg_tpu_torch.host import NativeHostEngine, load_or_build
     from impg_tpu_torch.query import engine as engine_mod
 
@@ -3104,7 +3150,8 @@ def phase_graph_pipeline(tmp: str, kernels, seq: dict) -> dict:
     full_win = seq["windows"][:GP_FULL_WINDOWS]
     print(f"[setup] graph pipeline: {GP_FULL_WINDOWS} of [4 sequence]'s "
           f"2 kb windows of the full panel ({', '.join(f'base:{s}-{e}' for s, e in full_win)}) "
-          f"for the pggb engine and {GP_PIPELINE}; the cut panel "
+          f"for the pggb engine and the first for {GP_PIPELINE}; the cut "
+          f"panel "
           f"({len(cut_index.seq_index)} sequences, {len(GP_CUT_WINDOWS)} "
           f"windows of 2 kb) for the rest; reduced: the seqwish, "
           f"syng-native, vcf and gfa:sgd-over-pggb runs and the .syngt "
@@ -3139,10 +3186,21 @@ def phase_graph_pipeline(tmp: str, kernels, seq: dict) -> dict:
               f"{len(clock.stderr.splitlines())} "
               f"native_wall_s_one_window={ref[1]:.3f} equal_native=True "
               f"launches={json.dumps(launches)}", flush=True)
+        return data
 
-    for tail in GP_FULL_RUNS:
-        run_set("full", seq["fa"], seq["paf"], full_win,
-                seq["rows"][:GP_FULL_WINDOWS], tail)
+    # The pggb engine's window graphs, one GFA a window, for [4 graph
+    # toolbox].
+    pggb_gfas = split_gfas(run_set("full", seq["fa"], seq["paf"], full_win,
+                                   seq["rows"][:GP_FULL_WINDOWS],
+                                   GP_FULL_RUNS[0]).decode())
+    if len(pggb_gfas) != GP_FULL_WINDOWS:
+        raise AssertionError(f"graph pipeline: {len(pggb_gfas)} pggb window "
+                             f"graphs, not {GP_FULL_WINDOWS}")
+    # The whole `gfa:` pipeline on the first window alone (two took 28.6 s
+    # on an H100 host, crush 20.3 of it), for the smoke's clock.
+    for tail in GP_FULL_RUNS[1:]:
+        run_set("full", seq["fa"], seq["paf"], full_win[:1],
+                seq["rows"][:1], tail)
     for tail in GP_CUT_RUNS:
         run_set("cut", cut_fa, cut_paf, list(GP_CUT_WINDOWS), cut_rows,
                 tail)
@@ -3184,7 +3242,18 @@ def phase_graph_pipeline(tmp: str, kernels, seq: dict) -> dict:
           f"{'; '.join(parts)}", flush=True)
     print(f"[4 graph pipeline] phase_s={time.perf_counter() - t_phase:.1f}",
           flush=True)
-    return {engine: syngt[engine][0] for engine in syngt}
+    return ({engine: syngt[engine][0] for engine in syngt},
+            dict(pggb_gfas=pggb_gfas, pggb_windows=full_win))
+
+
+def split_gfas(text: str) -> list:
+    """Concatenated GFAs (one a window, each from its H line) apart."""
+    parts = []
+    for line in text.splitlines(keepends=True):
+        if line.startswith("H\t") or not parts:
+            parts.append("")
+        parts[-1] += line
+    return parts
 
 
 
@@ -3193,13 +3262,15 @@ def phase_graph_pipeline(tmp: str, kernels, seq: dict) -> dict:
 # of the four files, ingested by the CLI's `index` and walked by the device
 # and native engines (cut from a tenth of the query tier's alignments: at
 # 25,000 this phase and [4 syng tools] took 179.1 s on an H100 host against
-# the 150 s they may take of the smoke); exact mode (with sequences) on the
-# sequence panel's first TP_EXACT_ALNS alignments (native realignment of
-# every trace segment is the cost); `-o gbwt` on the full panel and on the
-# cut panel's syng index.
-TP_N_ALN = 15_000
+# the 150 s they may take of the smoke, and at 15,000 129.3 + 3.7 s; cut
+# again, with exact mode, when [4 graph toolbox] came, to keep the smoke
+# under its 1200 s); exact mode (with sequences) on the sequence panel's
+# first TP_EXACT_ALNS alignments (native realignment of every trace segment
+# is the cost: about 20 s a file for 16); `-o gbwt` on the full panel and
+# on the cut panel's syng index.
+TP_N_ALN = 6_000
 TP_SPACING = 100
-TP_EXACT_ALNS = 16
+TP_EXACT_ALNS = 8
 TP_STATS_REGIONS = 4096
 APPROX_PATH = ("windows", "project_approx", "compact")
 
@@ -3302,8 +3373,9 @@ def phase_tracepoint_files(tmp: str, kernels, synth, seq: dict,
           f"{tp_s:.1f}s; reduced: n_aln {TP_N_ALN} of the query tier's "
           f"{N_ALN} (at 25000, a tenth, this phase and [4 syng tools] took "
           f"179.1 s on an H100 host against their 150 s share of the "
-          f"smoke); exact mode on the "
-          f"sequence panel's first {TP_EXACT_ALNS} alignments", flush=True)
+          f"smoke; at 15000 133.0 s; cut for [4 graph toolbox]); exact mode "
+          f"on the sequence panel's first {TP_EXACT_ALNS} alignments (16 "
+          f"took about 20 s a file)", flush=True)
     names = index.seq_index.get_name
     seeds = os.path.join(tmp, "tp_seeds.bed")
     with open(seeds, "w") as fh:
@@ -3606,6 +3678,577 @@ def phase_syng_tools(tmp: str, kernels, synth, seq: dict,
           flush=True)
 
 
+# [4 graph toolbox]: the GFA toolbox commands through the port's CLI in this
+# process, on the data the earlier phases built: [4 graph pipeline]'s pggb
+# window graphs of the full panel (post-processing, calls, reports,
+# rendering, lacing), the [4 sort] graph (a columnar report; `project` of
+# the GAF that `map --graph -o gaf` writes for [4 genotype graph]'s reads),
+# [4 sequence]'s cut panel (alignment and whole-input graphs), the panel
+# FASTA (an `.agz` archive and a walk's sequences through it) and render
+# bundles of one of its 2 kb windows.  Every command runs on the host, as
+# in impg_tpu: each is timed by its host stages, traced for the card's busy
+# time, and must launch no kernel except the walk of `query -o fasta` (K-B,
+# K-C, K-D) and, past AUTO_DEVICE_SAMPLES, pggb's two Ygs layouts (K-I).
+TB_BUDGET_S = 120
+TB_JOBS = 4                 # --run-joblist: the job list's first jobs
+TB_PROJECT_READS = 10_000   # of [4 genotype graph]'s reads, for map and project
+# map --graph and project: the sort graph cut to these paths (the truth
+# pair's among them).
+TB_PROJECT_PATHS = ("hap0", "hap1", "hap2") + GRAPH_TRUTH
+TB_PARTITION_SIZE = 2_000   # graph --partition-size on the cut panel
+TB_POA_SEQS = 8             # graph --gfa-engine poa: the cut panel's first
+TB_AGZ_WINDOWS = 16         # query -o fasta through the archive: the first
+                            # of [4 sequence]'s 10 kb windows
+TB_REPORT_FORMATS = ("md", "json", "tsv")
+
+
+def toolbox_stages() -> list:
+    """StageClock's stages of a toolbox command: graph_stages' and each
+    toolbox module's work."""
+    from impg_tpu_torch.commands import project
+    from impg_tpu_torch.genotype import graph as gt_graph
+    from impg_tpu_torch.graph import (bubbles, gfa_columns, lace,
+                                      render_svg, vcf, vcf_lace)
+    from impg_tpu_torch.io import agz
+
+    return graph_stages() + [
+        (gfa_columns, "parse_gfa_columns", "parse"),
+        (gfa_columns, "report_columns", "report"),
+        (bubbles, "decompose_flubbles", "flubbles"),
+        (vcf, "gfa_to_vcf", "vcf"),
+        (vcf, "gfa_to_vcf_flubbles", "vcf"),
+        (render_svg, "render_svg", "svg"),
+        (lace, "lace_gfas", "lace"),
+        (vcf_lace, "lace_vcfs", "lace"),
+        (agz, "create_agz", "agz"),
+        (gt_graph, "map_reads_to_graph", "read_mapping"),
+        (project, "project_gaf", "project")]
+
+
+class SgdSamples:
+    """While entered: the samples (steps x 8 a step x epochs) of every
+    layout `sortgfa._sgd_order_core` is asked for (pggb's two Ygs sorts)."""
+
+    def __init__(self, sortgfa):
+        self.mod, self.samples = sortgfa, []
+
+    def __enter__(self):
+        self.fn = fn = self.mod._sgd_order_core
+
+        def counted(n, step_node, step_pos, bounds, epochs=30,
+                    batch_per_step=8, *a, **kw):
+            self.samples.append(np.asarray(step_node).size * batch_per_step
+                                * epochs)
+            return fn(n, step_node, step_pos, bounds, epochs, batch_per_step,
+                      *a, **kw)
+        self.mod._sgd_order_core = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._sgd_order_core = self.fn
+
+
+def toolbox_run(kernels, argv, engine=None, out=None) -> dict:
+    """One toolbox command of the port's CLI in this process (with
+    `--compute-engine engine` when given), the launch counts zeroed around
+    it, its stages timed, its Ygs samples counted and the card traced:
+    dict(data (stdout, or the `out` file's bytes), wall, clock, launches,
+    busy ms or None, samples, stderr); fails unless it exits 0."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from impg_tpu_torch import cli as tcli
+    from impg_tpu_torch.graph import sortgfa
+    from impg_tpu_torch.query import engine as engine_mod
+
+    buf, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with contextlib.ExitStack() as st:
+        clock = st.enter_context(StageClock(engine_mod, toolbox_stages()))
+        sgd = st.enter_context(SgdSamples(sortgfa))
+        tp = st.enter_context(profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA]))
+        st.enter_context(contextlib.redirect_stdout(buf))
+        st.enter_context(contextlib.redirect_stderr(err))
+        t0 = time.perf_counter()
+        try:
+            rc = tcli.main(argv + (["--compute-engine", engine] if engine
+                                   else []), device=DEVICE)
+        except SystemExit as e:  # argparse's exit: keep its message
+            rc = e.code
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"graph toolbox {argv[0]} rc={rc}: "
+                           f"{err.getvalue()[-2000:]}")
+    launches, ops = kernels.launch_counts(), _device_ops(tp)
+    # A trace with no device op is an idle card only if nothing launched
+    # (torch.profiler has lost traces in full smokes): else not measured.
+    busy = (sum(us for us, _ in ops) / 1e3 if ops
+            else None if any(launches.values()) else 0.0)
+    return dict(data=buf.getvalue().encode() if out is None else _read(out),
+                wall=wall, clock=clock, launches=launches, busy=busy,
+                samples=sgd.samples, stderr=err.getvalue())
+
+
+def toolbox_line(label: str, runs: list, size: str, path: tuple = (),
+                 extra: str = "") -> float:
+    """Print a command's line (its runs' wall s, the host stages that took
+    most of it, the card's busy ms and idle share, K-I's launches and the
+    Ygs samples against AUTO_DEVICE_SAMPLES) after checking that its runs
+    launched the kernels of `path` and no other: its wall s in all."""
+    from impg_tpu_torch.graph import sortgfa
+
+    launches = {k: sum(r["launches"][k] for r in runs)
+                for k in runs[0]["launches"]}
+    samples = [s for r in runs for s in r["samples"]]
+    if any(s >= sortgfa.AUTO_DEVICE_SAMPLES for s in samples):
+        path = tuple(path) + ("path_sgd",)
+    check_launches(f"graph toolbox {label}", launches, path)
+    wall = sum(r["wall"] for r in runs)
+    busy = (None if any(r["busy"] is None for r in runs)
+            else sum(r["busy"] for r in runs))
+    stages: dict = {}
+    for r in runs:
+        for k, v in r["clock"].s.items():
+            stages[k] = stages.get(k, 0.0) + v
+    stages["rest"] = wall - sum(stages.values())
+    top = sorted(((v, k) for k, v in stages.items() if v > 0),
+                 reverse=True)[:3]
+    sgd = (f" ygs_samples={samples} threshold="
+           f"{sortgfa.AUTO_DEVICE_SAMPLES}" if samples else "")
+    print(f"[4 graph toolbox] {label}: {size} runs={len(runs)} "
+          f"wall_s={wall:.3f} ("
+          + ", ".join(f"{w:.3f}" for w in (r["wall"] for r in runs))
+          + ") top_stages=" + json.dumps([[k, round(v, 3)] for v, k in top])
+          + f" {device_share(busy, wall)} path_sgd_launches="
+          f"{launches['path_sgd']}{sgd} {extra}".rstrip(), flush=True)
+    return wall
+
+
+def _spells(label: str, text: str, truth: dict) -> int:
+    """Every path of `text` spells its `truth` sequence (or its reverse
+    complement, for a path written on the other strand): the paths
+    checked."""
+    from impg_tpu_torch.io.fasta import reverse_complement
+
+    spelled = spell_gfa(text)
+    if not spelled:
+        raise AssertionError(f"graph toolbox {label}: no path")
+    for name, s in spelled.items():
+        want = truth.get(name)
+        if want is None or s not in (want, reverse_complement(want)):
+            raise AssertionError(f"graph toolbox {label}: path {name} does "
+                                 "not spell its sequence")
+    return len(spelled)
+
+
+def _slices(fa: dict, names) -> dict:
+    """`NAME:START-END` path names to their slices of the FASTA `fa`."""
+    out = {}
+    for n in names:
+        base, _, rng = n.rpartition(":")
+        s, _, e = rng.partition("-")
+        out[n] = fa[base][int(s):int(e)]
+    return out
+
+
+def _laced_spells(laced: str, gfas: list, fa: dict) -> int:
+    """Every path of the laced graph spells its pieces (the window graphs'
+    paths of its sequence inside its range, as they spell) joined by the
+    FASTA `fa` between them: the paths checked."""
+    pieces: dict = {}
+    for g in gfas:
+        for name, s in spell_gfa(_read(g).decode()).items():
+            base, _, rng = name.rpartition(":")
+            a, _, b = rng.partition("-")
+            pieces.setdefault(base, []).append((int(a), int(b), s))
+    spelled = spell_gfa(laced)
+    for name, got in spelled.items():
+        base, _, rng = name.rpartition(":")
+        a, _, b = rng.partition("-")
+        ps = sorted(p for p in pieces.get(base, ())
+                    if int(a) <= p[0] and p[1] <= int(b))
+        want = ps[0][2] if ps else None
+        for prev, cur in zip(ps, ps[1:]):
+            want += fa[base][prev[1]:cur[0]] + cur[2]
+        if not ps or (ps[0][0], ps[-1][1]) != (int(a), int(b)) \
+                or got != want:
+            raise AssertionError(f"graph toolbox lace: path {name} does not "
+                                 "spell its pieces and the gaps between")
+    return len(spelled)
+
+
+def _vcf_records(text: str) -> list:
+    """A VCF's records as (the first nine columns, {sample: genotype}),
+    missing genotypes ('./.', as lace fills them) left out."""
+    samples, out = [], []
+    for ln in text.splitlines():
+        f = ln.split("\t")
+        if ln.startswith("#CHROM"):
+            samples = f[9:]
+        elif ln and not ln.startswith("#"):
+            out.append((f[:9], {s: g for s, g in zip(samples, f[9:])
+                                if g != "./."}))
+    return out
+
+
+def _window_vcf(text: str, s: int, e: int) -> str:
+    """A genome-frame VCF of the window `base:s-e` written in the window's
+    frame (CHROM `base:s-e`, POS from the window's start), as `lace`
+    takes per-window VCFs."""
+    out = []
+    for ln in text.splitlines():
+        if ln and not ln.startswith("#"):
+            f = ln.split("\t")
+            f[0], f[1] = f"{f[0]}:{s}-{e}", str(int(f[1]) - s)
+            ln = "\t".join(f)
+        out.append(ln)
+    return "\n".join(out) + "\n"
+
+
+def phase_graph_toolbox(tmp: str, kernels, synth, seq: dict,
+                        pipeline: dict) -> float:
+    """Every GFA toolbox command but those of the [4 sort] graph
+    (`toolbox_sort_graph`): on the pggb window graphs `normalize`,
+    `normalize-self-loops` (and `--diagnose`), `smooth`, `crush`,
+    `render-graph`, `gfa2vcf` (both `--sites`), `graph-report` (md, json,
+    tsv, `--flubbles`) and `lace` of the windows' graphs (`--fill-gaps`
+    with the panel FASTA) and VCFs; on the cut panel `align` (all pairs,
+    then `--job-list` and `--run-joblist` of its first TB_JOBS jobs) and
+    `graph` (poa, seqwish, pggb, `-a` with align's PAF,
+    `--partition-size`); on the panel `agz create|list` and `query -o
+    fasta` of [4 sequence]'s 10 kb windows through the archive; `render -x`
+    of a window with the poa and pggb engines and `--render-graph`.  Gates:
+    exit status 0; output graphs spell their input paths (laced ones the
+    sequence between their ends); `graph -a` equals `graph`; each
+    run-joblist pair file equals align's rows of that pair; the archive
+    holds the FASTA and its query bytes equal the FASTA's; report_columns
+    equals report on the window graphs; the render manifest names every
+    file the bundle holds.  Returns the phase's seconds."""
+    from impg_tpu_torch.graph import gfa as gfa_mod
+    from impg_tpu_torch.graph import gfa_columns
+    from impg_tpu_torch.io import agz as agz_mod
+
+    t_phase = time.perf_counter()
+    fa, paf = seq["fa"], seq["paf"]
+    cut_fa, _ = seq["cut"]
+    panel = _fasta_dict(fa)
+    cut = _fasta_dict(cut_fa)
+    wins = pipeline["pggb_windows"]
+    gfas = []
+    for i, text in enumerate(pipeline["pggb_gfas"]):
+        gfas.append(os.path.join(tmp, f"tb_w{i}.gfa"))
+        with open(gfas[-1], "w") as fh:
+            fh.write(text)
+    print(f"[setup] graph toolbox: [4 graph pipeline]'s pggb graphs of "
+          f"{', '.join(f'base:{s}-{e}' for s, e in wins)} ("
+          + ", ".join(f"{os.path.getsize(g)} bytes" for g in gfas)
+          + f"); [4 sequence]'s cut panel ({len(cut)} sequences, "
+          f"{sum(len(v) for v in cut.values())} bp) and panel "
+          f"({len(panel)} sequences, {sum(len(v) for v in panel.values())} "
+          f"bp); reduced: align --run-joblist runs the first {TB_JOBS} "
+          f"jobs (one process each); whole-input graphs and the pggb "
+          f"render on the cut panel (the full panel aligns 9,312 pairs a "
+          f"2 kb window: 19.5 s a render on an H100 host); graph --gfa-engine "
+          f"poa on the cut panel's first {TB_POA_SEQS} sequences (all 25: "
+          f"24.5 s); query -o fasta through the archive over the first "
+          f"{TB_AGZ_WINDOWS} of the 64 windows (all: 10.2 s)", flush=True)
+    spent = 0.0
+
+    def sizes(paths):
+        return "in_bytes=" + "+".join(str(os.path.getsize(p)) for p in paths)
+
+    # Post-processing: each output spells its input's paths.
+    for cmd, extra in (("normalize", []), ("normalize-self-loops", []),
+                       ("smooth", []), ("crush", [])):
+        runs = []
+        for i, g in enumerate(gfas):
+            out = os.path.join(tmp, f"tb_{cmd}_{i}.gfa")
+            runs.append(toolbox_run(kernels, [cmd, g, *extra, "--output",
+                                              out], out=out))
+            with open(g) as fh:
+                truth = spell_gfa(fh.read())
+            _spells(cmd, runs[-1]["data"].decode(), truth)
+        spent += toolbox_line(cmd, runs, sizes(gfas),
+                              extra="spelled_exactly=True")
+    runs = [toolbox_run(kernels, ["normalize-self-loops", g, "--diagnose"])
+            for g in gfas]
+    diag = [json.loads(r["data"]) for r in runs]
+    spent += toolbox_line("normalize-self-loops --diagnose", runs,
+                          sizes(gfas), extra="direct_self_loop_edges="
+                          + json.dumps([d["direct_self_loop_edges"]
+                                        for d in diag]))
+    runs = [toolbox_run(kernels, ["render-graph", g, "--output",
+                                  os.path.join(tmp, f"tb_{i}.svg")],
+                        out=os.path.join(tmp, f"tb_{i}.svg"))
+            for i, g in enumerate(gfas)]
+    if not all(r["data"].startswith(b"<svg") for r in runs):
+        raise AssertionError("graph toolbox render-graph: not an SVG")
+    spent += toolbox_line("render-graph", runs, sizes(gfas),
+                          extra="svg_bytes=" + "+".join(
+                              str(len(r["data"])) for r in runs))
+
+    # Calls and reports.
+    vcfs = {}
+    for sites in ("anchors", "flubbles"):
+        runs = [toolbox_run(kernels, ["gfa2vcf", g, "--sites", sites])
+                for g in gfas]
+        vcfs[sites] = [r["data"].decode() for r in runs]
+        recs = [sum(1 for ln in v.splitlines() if not ln.startswith("#"))
+                for v in vcfs[sites]]
+        spent += toolbox_line(f"gfa2vcf --sites {sites}", runs, sizes(gfas),
+                              extra=f"records={recs}")
+    for i, g in enumerate(gfas):
+        with open(g) as fh:
+            text = fh.read()
+        rep = gfa_columns.report_columns(gfa_columns.parse_gfa_columns(text))
+        if rep != gfa_mod.report(gfa_mod.Gfa.parse(text)):
+            raise AssertionError(f"graph toolbox: report_columns differs "
+                                 f"from report on window {i}")
+    for fmt in TB_REPORT_FORMATS:
+        runs = [toolbox_run(kernels, ["graph-report", g, "--format", fmt])
+                for g in gfas]
+        if fmt == "json":
+            nodes = [json.loads(r["data"])["nodes"] for r in runs]
+        spent += toolbox_line(f"graph-report --format {fmt}", runs,
+                              sizes(gfas), extra="report_columns_equal_"
+                              "report=True")
+    runs = [toolbox_run(kernels, ["graph-report", g, "--flubbles"])
+            for g in gfas]
+    spent += toolbox_line("graph-report --flubbles", runs, sizes(gfas),
+                          extra=f"nodes={nodes}")
+
+    # Lace: the windows' graphs, gaps filled from the panel, and the
+    # windows' VCFs lifted back to the genome frame.
+    out = os.path.join(tmp, "tb_laced.gfa")
+    r = toolbox_run(kernels, ["lace", "--gfa-files", ",".join(gfas),
+                              "--fill-gaps", "--sequence-files", fa,
+                              "--output", out], out=out)
+    n = _laced_spells(r["data"].decode(), gfas, panel)
+    spent += toolbox_line("lace --fill-gaps", [r], sizes(gfas),
+                          extra=f"laced_paths={n} spelled_exactly=True")
+    vpaths = []
+    for i, ((s, e), v) in enumerate(zip(wins, vcfs["anchors"])):
+        vpaths.append(os.path.join(tmp, f"tb_w{i}.vcf"))
+        with open(vpaths[-1], "w") as fh:
+            fh.write(_window_vcf(v, s, e))
+    out = os.path.join(tmp, "tb_laced.vcf")
+    r = toolbox_run(kernels, ["lace", "--files", ",".join(vpaths),
+                              "--output", out], out=out)
+    got, want = (_vcf_records(r["data"].decode()),
+                 [x for v in vcfs["anchors"] for x in _vcf_records(v)])
+    if got != want:
+        raise AssertionError("graph toolbox lace of VCFs: the records are "
+                             "not the windows' records in the genome frame")
+    spent += toolbox_line("lace (VCF)", [r], sizes(vpaths),
+                          extra=f"records={len(got)} lifted_exactly=True")
+
+    # The cut panel: alignment, a job list and whole-input graphs.
+    aln = os.path.join(tmp, "tb_align.paf")
+    r = toolbox_run(kernels, ["align", "-f", cut_fa, "-o", aln], out=aln)
+    rows = r["data"].decode().splitlines()
+    spent += toolbox_line("align", [r], sizes([cut_fa]),
+                          extra=f"rows={len(rows)}")
+    jobs = os.path.join(tmp, "tb_jobs.txt")
+    r1 = toolbox_run(kernels, ["align", "-f", cut_fa, "--job-list", "-o",
+                               jobs], out=jobs)
+    lines = r1["data"].decode().splitlines()
+    head = os.path.join(tmp, "tb_jobs_head.txt")
+    with open(head, "w") as fh:
+        for i, ln in enumerate(lines[:TB_JOBS]):
+            if not ln.startswith("python -m impg_tpu_torch.cli align "):
+                raise AssertionError(f"graph toolbox: job line {ln!r}")
+            fh.write(ln.replace("python -m", f"{sys.executable} -m", 1)
+                     .replace(f"-o pair_{i:05d}.paf",
+                              f"-o {tmp}/pair_{i:05d}.paf") + "\n")
+    saved = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = REPO + (os.pathsep + saved if saved else "")
+    try:
+        r2 = toolbox_run(kernels, ["align", "-f", cut_fa, "--run-joblist",
+                                   head, "--jobs", str(TB_JOBS)])
+    finally:
+        if saved is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = saved
+    for i, ln in enumerate(lines[:TB_JOBS]):
+        q, t = ln.split("--pair ")[1].split()[0].split(":")
+        pair_rows = [x for x in rows if x.split("\t")[0] == q
+                     and x.split("\t")[5] == t]
+        if _read(f"{tmp}/pair_{i:05d}.paf").decode().splitlines() != \
+                pair_rows:
+            raise AssertionError(f"graph toolbox run-joblist: pair {q}:{t} "
+                                 "differs from align's rows")
+    spent += toolbox_line("align --job-list, --run-joblist", [r1, r2],
+                          sizes([cut_fa]), extra=f"jobs={len(lines)} "
+                          f"ran={TB_JOBS} pair_files_equal_align=True")
+    graphs = {}
+    poa_fa = os.path.join(tmp, "tb_cut_head.fa")
+    synth.write_fasta(poa_fa, [(k, v) for k, v in cut.items()][:TB_POA_SEQS])
+    for label, gfa_fa, argv in (
+            (f"poa (first {TB_POA_SEQS} sequences)", poa_fa,
+             ["--gfa-engine", "poa"]),
+            ("seqwish", cut_fa, ["--gfa-engine", "seqwish"]),
+            ("seqwish -a align.paf", cut_fa,
+             ["--gfa-engine", "seqwish", "-a", aln]),
+            ("pggb", cut_fa, ["--gfa-engine", "pggb"]),
+            (f"--partition-size {TB_PARTITION_SIZE}", cut_fa,
+             ["--partition-size", str(TB_PARTITION_SIZE)])):
+        out = os.path.join(tmp, f"tb_graph_{len(graphs)}.gfa")
+        r = toolbox_run(kernels, ["graph", "-f", gfa_fa, *argv, "-o", out],
+                        out=out)
+        text = r["data"].decode()
+        graphs[label] = text
+        truth = (_slices(cut, spell_gfa(text)) if "partition" in label
+                 else cut)
+        n = _spells(f"graph {label}", text, truth)
+        same = ""
+        if label == "seqwish -a align.paf":
+            if text != graphs["seqwish"]:
+                raise AssertionError("graph toolbox: graph -a align.paf "
+                                     "differs from graph aligning itself")
+            same = "equal_self_aligned=True "
+        spent += toolbox_line(f"graph {label}", [r], sizes([gfa_fa]),
+                              extra=f"paths={n} spelled_exactly=True {same}")
+
+    # The panel through an archive.
+    agz = os.path.join(tmp, "tb_panel.agz")
+    r = toolbox_run(kernels, ["agz", "create", fa, "-o", agz])
+    arc = agz_mod.AgzArchive(agz)
+    try:
+        for name, s in panel.items():
+            if arc.fetch_sequence(name, 0, len(s)) != s:
+                raise AssertionError(f"graph toolbox agz: {name} differs "
+                                     "from the FASTA")
+    finally:
+        arc.close()
+    r2 = toolbox_run(kernels, ["agz", "list", agz])
+    listed = [ln.split("\t") for ln in r2["data"].decode().splitlines()]
+    if sorted((c, int(n)) for _, c, n in listed) != sorted(
+            (k, len(v)) for k, v in panel.items()):
+        raise AssertionError("graph toolbox agz list: contigs or lengths "
+                             "differ from the FASTA")
+    spent += toolbox_line("agz create, list", [r, r2], sizes([fa]),
+                          extra=f"archive_bytes={os.path.getsize(agz)} "
+                          "round_trip_equal=True")
+    bed = _bed(os.path.join(tmp, "tb_fasta.bed"),
+               seq["fasta_windows"][:TB_AGZ_WINDOWS])
+    walk = ["query", "-a", paf, "-b", bed, "-x", "-m", "2", "-d", "0",
+            "-o", "fasta"]
+    r = toolbox_run(kernels, walk + ["--sequence-files", agz], "device")
+    ref = toolbox_run(kernels, walk + ["--sequence-files", fa], "device")
+    if r["data"] != ref["data"] or not r["data"]:
+        raise AssertionError("graph toolbox: query -o fasta through the "
+                             "archive differs from the FASTA's")
+    spent += toolbox_line("query -o fasta --sequence-files panel.agz", [r],
+                          f"windows={TB_AGZ_WINDOWS}", WALK_PATH,
+                          extra=f"out_bytes={len(r['data'])} "
+                          f"equal_fasta_backed=True fasta_backed_wall_s="
+                          f"{ref['wall']:.3f}")
+
+    # Render bundles of one 2 kb window: of the panel with POA, of the cut
+    # panel with pggb.
+    for engine, (rfa, rpaf), (s, e) in (
+            ("poa", (fa, paf), wins[0]),
+            ("pggb", seq["cut"], GP_CUT_WINDOWS[1])):
+        prefix = os.path.join(tmp, f"tb_render_{engine}")
+        r = toolbox_run(kernels, ["render", "-a", rpaf, "-r",
+                                  f"base:{s}-{e}", "-d", "0", "-x", "-m",
+                                  "2", "--sequence-files", rfa, "-O", prefix,
+                                  "--gfa-engine", engine, "--render-graph"])
+        with open(os.path.join(prefix, "manifest.json")) as fh:
+            manifest = json.load(fh)
+        named = set(manifest["files"].values()) | {"manifest.json",
+                                                   "render.svg"}
+        if named != set(os.listdir(prefix)):
+            raise AssertionError(f"graph toolbox render {engine}: the "
+                                 "bundle holds files its manifest does not "
+                                 "name, or lacks one")
+        rendered = _fasta_dict(os.path.join(prefix, "render.fa"))
+        n = _spells(f"render {engine}",
+                    _read(os.path.join(prefix, "render.gfa")).decode(),
+                    rendered)
+        spent += toolbox_line(f"render -x --gfa-engine {engine} "
+                              "--render-graph", [r], f"base:{s}-{e} of "
+                              f"{os.path.basename(rfa)}",
+                              extra=f"paths={n} step_samples="
+                              f"{manifest['step_samples']} "
+                              "manifest_names_every_file=True")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[4 graph toolbox] phase_s={phase_s:.1f} commands_s={spent:.1f}",
+          flush=True)
+    return phase_s
+
+
+def toolbox_sort_graph(tmp: str, text: str, gc, kernels, reads: str) -> float:
+    """`graph-report` of the [4 sort] graph (the columnar report; its
+    counts equal the columns' in memory: report_columns equals report on
+    the region graphs of `phase_graph_toolbox`); then `map --graph -o gaf` of
+    the first TB_PROJECT_READS of [4 genotype graph]'s reads onto the graph
+    cut to the paths TB_PROJECT_PATHS (the truth pair's among them) and
+    `project` of that GAF onto it (every record retained, a pack row a
+    segment touched).  Returns the seconds."""
+    from impg_tpu_torch.graph import gfa_columns
+
+    t0 = time.perf_counter()
+    gfa = os.path.join(tmp, "tb_sort.gfa")
+    with open(gfa, "w") as fh:
+        fh.write(text)
+    r = toolbox_run(kernels, ["graph-report", gfa, "--format", "json"])
+    rep = json.loads(r["data"])
+    counts = dict(nodes=gc.n_segs, edges=int(gc.link_a.size),
+                  paths=gc.n_paths,
+                  total_segment_bp=int(gc.seg_lens().sum()))
+    if {k: rep[k] for k in counts} != counts:
+        raise AssertionError("graph toolbox graph-report: the [4 sort] "
+                             "graph's counts differ from its columns'")
+    spent = toolbox_line("graph-report ([4 sort] graph)", [r],
+                         f"segments={gc.n_segs} steps="
+                         f"{gc.step_name_idx.size} in_bytes={len(text)}",
+                         extra="counts_equal_columns=True")
+    keep = set(TB_PROJECT_PATHS)
+    cut = os.path.join(tmp, "tb_sort_cut.gfa")
+    with open(cut, "w") as fh:
+        for ln in text.splitlines(keepends=True):
+            if not ln.startswith("P\t") or ln.split("\t", 2)[1] in keep:
+                fh.write(ln)
+    head = os.path.join(tmp, "tb_reads.fq")
+    with open(reads, "rb") as src, open(head, "wb") as dst:
+        for _ in range(4 * TB_PROJECT_READS):
+            dst.write(src.readline())
+    size = (f"segments={gc.n_segs} paths={len(keep)} in_bytes="
+            f"{os.path.getsize(cut)}")
+    print(f"[setup] graph toolbox: map --graph and project on the [4 sort] "
+          f"graph's paths {','.join(TB_PROJECT_PATHS)} and "
+          f"{TB_PROJECT_READS} of [4 genotype graph]'s reads; reduced: on "
+          f"all 90 paths project's graph fingerprint (a per-byte hash over "
+          f"every step, as impg_tpu's) and the dict-model parse took 43.7 "
+          f"of 49.9 s and map --graph 30.7 s on an H100 host (on 17 paths "
+          f"15.6 and 10.9 s)", flush=True)
+    gaf = os.path.join(tmp, "tb_sort.gaf")
+    r = toolbox_run(kernels, ["map", "--graph", cut, "-q", head, "-o", "gaf",
+                              "-O", gaf], out=gaf)
+    n_gaf = r["data"].count(b"\n")
+    spent += toolbox_line("map --graph -o gaf ([4 sort] graph, cut)", [r],
+                          f"{size} reads={TB_PROJECT_READS}",
+                          extra=f"gaf_records={n_gaf}")
+    proj = os.path.join(tmp, "tb_sort.proj")
+    r = toolbox_run(kernels, ["project", "--gfa", cut, "--gaf", gaf, "-O",
+                              proj])
+    done = r["stderr"].split("Projected ")[1].split(" GAF")[0]
+    pack = _read(os.path.join(proj, "sample.pack.tsv")).decode().splitlines()
+    n_rows = sum(1 for ln in pack if not ln.startswith("#"))
+    if done != f"{n_gaf}/{n_gaf}" or n_rows == 0:
+        raise AssertionError(f"graph toolbox project: {done} records "
+                             f"retained, {n_rows} pack rows")
+    spent += toolbox_line("project ([4 sort] graph, cut)", [r], size,
+                          extra=f"records={done} pack_rows={n_rows}")
+    wall = time.perf_counter() - t0
+    print(f"[4 graph toolbox] [4 sort] graph part: {wall:.1f}s "
+          f"(commands {spent:.1f}s)", flush=True)
+    return wall
+
 def main() -> int:
     if len(sys.argv) > 1:
         raise SystemExit("chip_smoke: takes no arguments")
@@ -3728,6 +4371,8 @@ def main() -> int:
         graph_rows, graph_launches = phase_genotype_graph(
             text, gc, kernels, co, gt_graph, gt_core, gfa_mod, OD, synth,
             tmp)
+        toolbox_s = toolbox_sort_graph(tmp, text, gc, kernels,
+                                       os.path.join(tmp, "graph_reads.fq"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rows.update(graph_rows)
@@ -3737,9 +4382,13 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="impg_smoke_")
     try:
         seq = phase_sequence(tmp, kernels, synth)
-        syngt = phase_graph_pipeline(tmp, kernels, seq)
+        syngt, pipeline = phase_graph_pipeline(tmp, kernels, seq)
         phase_tracepoint_files(tmp, kernels, synth, seq, syngt)
         phase_syng_tools(tmp, kernels, synth, seq, syngt)
+        toolbox_s += phase_graph_toolbox(tmp, kernels, synth, seq, pipeline)
+        print(f"[4 graph toolbox] total_s={toolbox_s:.1f} budget_s="
+              f"{TB_BUDGET_S} within_budget={toolbox_s <= TB_BUDGET_S}",
+              flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     tmp = tempfile.mkdtemp(prefix="impg_smoke_")

@@ -1,8 +1,11 @@
 """Command line of the PyTorch/CUDA port.
 
-The port's own CLI for `index`, `query`, `stats`, `partition`, `refine`,
-`similarity`, `syng`, `map`, `genotype`, `sort`, `export-1aln`,
-`export-tpa`, `read-index`, `syng2gfa`, `syng-repair` and `infer`, with
+The port's own CLI for every subcommand of impg_tpu.cli: `index`, `query`,
+`stats`, `partition`, `refine`, `similarity`, `syng`, `map`, `genotype`,
+`sort`, `export-1aln`, `export-tpa`, `read-index`, `syng2gfa`,
+`syng-repair`, `infer` and the GFA toolbox (`graph`, `align`, `lace`,
+`render`, `project`, `normalize`, `normalize-self-loops`, `smooth`,
+`crush`, `gfa2vcf`, `graph-report`, `render-graph`, `agz`), with
 impg_tpu.cli's argument names, defaults, messages and output bytes for them;
 it imports nothing of impg_tpu.  Alignments are PAF (optionally gzipped),
 `.1aln` (ASCII or the ONEcode binary container) or `.tpa`: tracepoint files
@@ -48,11 +51,20 @@ gfa:<pipeline>` stages after any engine (`cut-n`, `sort`, `sgd`, `smooth`,
 tools: `read-index`, `syng2gfa`, `syng-repair` and `infer` (candidates
 scored by genotype_cos on the host, as impg_tpu's infer does whatever
 `--compute-engine` says; `--gaf` read walks matched through the GBWT of
-syng/gbwt.py).
+syng/gbwt.py); and the GFA toolbox: whole-input graphs (`graph --gfa-engine
+poa|seqwish|pggb`, with a given PAF, `--sparsify`, or `--partition-size`
+through this CLI's own `partition -o gfa` on the same device), all-vs-all
+alignment (`align`, job lists whose commands run this package's CLI, where
+impg_tpu's run impg_tpu.cli), lacing of GFAs and VCFs (`lace`; a `.zst`
+output needs `zstandard`, imported when it is written), the post-processing
+commands over graph/ (`normalize`, `normalize-self-loops`, `smooth`,
+`crush`), variant calls and reports (`gfa2vcf`, `graph-report` on the GFA
+columns), render bundles (`render`, its walk on the host engine as in
+impg_tpu.cli), `render-graph`, `project` and `agz create|list`.  `graph
+--gfa-engine` does not offer `syng-local`, which impg_tpu.cli accepts and
+then always refuses: both exit 2.
 
-Not yet ported, and refused with exit status 2 before any input is read:
-the GFA toolbox subcommands of impg_tpu.cli (UNPORTED_COMMANDS) and
-`--compute-engine mesh`.
+Not yet ported, and refused with exit status 2: `--compute-engine mesh`.
 
     python -m impg_tpu_torch.cli query -a aln.paf -r 'chr1:0-50000' -x \\
         -d 100 -o bed --compute-engine device
@@ -70,24 +82,38 @@ import torch
 
 from impg_tpu_torch.io import bed as bed_mod
 
-# The subcommands of impg_tpu.cli that the port has not ported.
-UNPORTED_COMMANDS = (
-    "lace", "align", "render", "project", "render-graph",
-    "normalize-self-loops", "normalize", "smooth", "graph", "agz",
-    "crush", "gfa2vcf", "graph-report",
-)
 # Sequence-backed region formats of `query` (`gfa:<pipeline>` is gfa).
 REGION_FORMATS = ("fasta", "gfa", "maf", "fasta-aln", "vcf")
 # Post-processing stages of `-o gfa:<pipeline>` on the PAF-index route.
 GFA_STAGES = ("sort", "sgd", "smooth", "normalize", "crush", "selfloops",
               "self-loops", "cut-n")
-# Global options of the parser that take a value (for finding the command).
-_VALUE_OPTS = ("-v", "--verbosity", "-t", "--threads")
 
 
 def _fail(msg: str):
     print(f"error: {msg}", file=sys.stderr)
     raise SystemExit(2)
+
+
+def _read_gfa(path: str) -> str:
+    """A GFA's text from `path`, or from stdin for `-`."""
+    if path == "-":
+        return sys.stdin.read()
+    with open(path) as fh:
+        return fh.read()
+
+
+def _write_out(path, text: str) -> None:
+    """`text` into `path`, or onto stdout when no path is given."""
+    if path:
+        with open(path, "w") as fh:
+            fh.write(text)
+    else:
+        sys.stdout.write(text)
+
+
+def _poa_scoring(spec: str) -> tuple:
+    """`--poa-scoring` values, comma- or slash-separated."""
+    return tuple(int(x) for x in spec.replace("/", ",").split(","))
 
 
 def _add_engine_opt(p: argparse.ArgumentParser) -> None:
@@ -282,9 +308,7 @@ def _emit_region_format(
     from impg_tpu_torch.graph import region as region_mod
     from impg_tpu_torch.query import merge as merge_mod
 
-    scoring = tuple(
-        int(x) for x in args.poa_scoring.replace("/", ",").split(",")
-    )
+    scoring = _poa_scoring(args.poa_scoring)
     # cut-n=N is a PRE-engine stage: clip each gathered interval's terminal
     # N-runs (>= N bases) against the real sequence before the GFA engine
     # runs (lib.rs:963-979 terminal_n_clip; graph.rs:69 terminal_n_clip_span).
@@ -1094,7 +1118,7 @@ def cmd_similarity(args, device: torch.device) -> int:
         )
         return 2
     merge_distance = -1 if args.no_merge else bed_mod.parse_size(args.merge_distance)
-    scoring = tuple(int(x) for x in args.poa_scoring.replace("/", ",").split(","))
+    scoring = _poa_scoring(args.poa_scoring)
     if len(scoring) != 6:
         print("error: --poa-scoring needs 6 comma-separated values", file=sys.stderr)
         return 2
@@ -1608,23 +1632,15 @@ def cmd_genotype(args, device: torch.device) -> int:
 def cmd_sort(args, device: torch.device) -> int:
     from impg_tpu_torch.graph import sortgfa as sortgfa_mod
 
-    if args.gfa == "-":
-        text = sys.stdin.read()
-    else:
-        with open(args.gfa) as fh:
-            text = fh.read()
     try:
         out_text = sortgfa_mod.sort_pipeline(
-            text, args.pipeline, sgd_backend=args.sgd_backend, device=device,
+            _read_gfa(args.gfa), args.pipeline, sgd_backend=args.sgd_backend,
+            device=device,
         )
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    if args.output:
-        with open(args.output, "w") as fh:
-            fh.write(out_text)
-    else:
-        sys.stdout.write(out_text)
+    _write_out(args.output, out_text)
     return 0
 
 
@@ -1690,11 +1706,7 @@ def cmd_syng2gfa(args) -> int:
             for i in range(len(syng.seq_index))
         }
         text = paths_to_walks(text, lengths)
-    if args.output:
-        with open(args.output, "w") as fh:
-            fh.write(text)
-    else:
-        sys.stdout.write(text)
+    _write_out(args.output, text)
     return 0
 
 
@@ -1892,6 +1904,579 @@ def cmd_infer(args) -> int:
         )
         print(
             "Wrote haplotype FASTAs: " + ", ".join(paths), file=sys.stderr
+        )
+    return 0
+
+
+# ---- The GFA toolbox: host commands, as in impg_tpu.cli ----
+
+
+def cmd_lace(args) -> int:
+    files: list[str] = []
+    for entry in (args.gfa_files or []) + (args.files or []):
+        files.extend(x for x in entry.split(",") if x)
+    for list_path in (args.gfa_list, args.file_list):
+        if list_path:
+            with open(list_path) as fh:
+                files.extend(
+                    l.strip() for l in fh
+                    if l.strip() and not l.strip().startswith("#")
+                )
+    if not files:
+        print("error: no input files specified", file=sys.stderr)
+        return 2
+    fmt = args.format
+    if fmt == "auto":
+        # Extension of the first file decides (main.rs determine_file_format)
+        fmt = (
+            "vcf"
+            if files[0].endswith((".vcf", ".vcf.gz", ".vcf.zst", ".vcf.bgz"))
+            else "gfa"
+        )
+    seq_idx = _sequence_index(args) if args.sequence_files else None
+    if fmt == "vcf":
+        from impg_tpu_torch.graph import vcf_lace
+
+        text = vcf_lace.lace_vcfs(files, seq_idx)
+    else:
+        from impg_tpu_torch.graph import lace as lace_mod
+
+        text = lace_mod.lace_files(files, args.fill_gaps, seq_idx)
+    if args.output.endswith(".gz"):
+        import gzip as gzip_mod
+
+        with gzip_mod.open(args.output, "wt") as fh:
+            fh.write(text)
+    elif args.output.endswith(".zst"):
+        try:  # not installed on every machine: a precise error, not a trace
+            import zstandard
+        except ImportError:
+            print(f"error: writing '{args.output}' needs the zstandard "
+                  "package, which is not installed; write a .gz or plain "
+                  "output instead", file=sys.stderr)
+            return 1
+        with open(args.output, "wb") as raw:
+            raw.write(zstandard.ZstdCompressor().compress(text.encode()))
+    else:
+        with open(args.output, "w") as fh:
+            fh.write(text)
+    print(
+        f"Laced {len(files)} {fmt.upper()}s -> {args.output}",
+        file=sys.stderr,
+    )
+    return 0
+
+
+# The module a job list's commands run (impg_tpu.cli writes its own name).
+JOB_LIST_MODULE = "impg_tpu_torch.cli"
+
+
+def _run_joblist(args) -> int:
+    """Execute an existing joblist (one shell command per line) with
+    parallel slots + progress (align.rs --run-joblist role)."""
+    import concurrent.futures
+    import subprocess
+    import time as time_mod
+
+    with open(args.run_joblist) as fh:
+        cmds = [l.strip() for l in fh if l.strip() and not l.startswith("#")]
+    jobs = args.jobs or getattr(args, "threads", None) or os.cpu_count() or 4
+    t0 = time_mod.perf_counter()
+    failed = 0
+    done = 0
+
+    def run_one(cmd: str) -> int:
+        return subprocess.run(cmd, shell=True).returncode
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=jobs) as ex:
+        for rc in ex.map(run_one, cmds):
+            done += 1
+            if rc != 0:
+                failed += 1
+            if done % max(len(cmds) // 20, 1) == 0 or done == len(cmds):
+                dt = time_mod.perf_counter() - t0
+                eta = dt / done * (len(cmds) - done)
+                print(
+                    f"[joblist] {done}/{len(cmds)} "
+                    f"({failed} failed) elapsed {dt:.0f}s eta {eta:.0f}s",
+                    file=sys.stderr,
+                )
+    return 1 if failed else 0
+
+
+def cmd_align(args) -> int:
+    from impg_tpu_torch.commands import align as align_mod
+
+    if args.run_joblist:
+        return _run_joblist(args)
+    files = _comma_list(args.fasta_files)
+    scoring = tuple(int(x) for x in args.scoring.split(","))
+    if len(scoring) != 4:
+        print("error: --scoring needs 4 comma-separated values", file=sys.stderr)
+        return 2
+    config = align_mod.AlignConfig(
+        min_anchors=args.min_anchors,
+        max_gap=args.max_gap,
+        min_chain_span=args.min_chain_span,
+        scoring=scoring,
+        sparsify=args.sparsify,
+        mash_k=args.mash_k,
+        sketch_size=args.sketch_size,
+    )
+    pairs = None
+    if args.pair:
+        pairs = []
+        for spec in args.pair:
+            q, _, t = spec.partition(":")
+            if not q or not t:
+                print(
+                    f"error: --pair needs QUERY:TARGET, got '{spec}'",
+                    file=sys.stderr,
+                )
+                return 2
+            pairs.append((q, t))
+    if args.job_list:
+        # Job-list output (align.rs AlignOutputFormat::JobList): one
+        # self-contained command per selected pair for cluster execution,
+        # each running this package's CLI.
+        from impg_tpu_torch.commands.graph import load_sequences
+
+        seqs = load_sequences(files)
+        if pairs is None:
+            pairs = align_mod.select_pairs(
+                list(seqs), seqs, config.sparsify,
+                mash_k=config.mash_k, sketch_size=config.sketch_size,
+            )
+        file_args = ",".join(files)
+        _write_out(args.output, "".join(
+            f"python -m {JOB_LIST_MODULE} align -f {file_args} "
+            f"--pair {q}:{t} -o pair_{i:05d}.paf\n"
+            for i, (q, t) in enumerate(pairs)
+        ))
+        print(f"Wrote {len(pairs)} alignment jobs", file=sys.stderr)
+        return 0
+    out = open(args.output, "w") if args.output else sys.stdout
+    try:
+        n = align_mod.run_align(files, out, config, pairs=pairs)
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    print(f"Wrote {n} alignment rows", file=sys.stderr)
+    return 0
+
+
+def _pansn(nm: str):
+    """PanSN fields of a sequence name (sample#haplotype#contig, exactly
+    three non-empty fields), or None."""
+    parts = nm.split("#")
+    if len(parts) == 3 and all(parts):
+        return dict(sample=parts[0], haplotype=parts[1], contig=parts[2])
+    return None
+
+
+def cmd_render(args) -> int:
+    """Render bundle (reference: render_bundle.rs:12 RenderManifest —
+    rendered FASTA + regional graph + namespace table + manifest); the walk
+    runs on the host engine, as in impg_tpu.cli."""
+    import json
+
+    from impg_tpu_torch.commands import render_translation as rt_mod
+    from impg_tpu_torch.graph import region as region_mod
+    from impg_tpu_torch.query import engine, merge as merge_mod, outputs
+    from impg_tpu_torch.syng.index import SyngIndex
+
+    index = _load_index(args)
+    target_name, (start, end), name = bed_mod.parse_target_range(
+        args.target_range
+    )
+    tid = index.seq_index.get_id(target_name)
+    if tid is None:
+        print(f"error: '{target_name}' not found in index", file=sys.stderr)
+        return 1
+    seq_idx = _sequence_index(args)
+    merge_distance = bed_mod.parse_size(args.merge_distance)
+    if args.transitive:
+        results = engine.query_transitive_bfs(
+            index, tid, start, end, max_depth=args.max_depth
+        )
+    else:
+        results = engine.query(index, tid, start, end)
+    merge_mod.merge_query_adjusted_intervals(results, merge_distance, True)
+
+    prefix = args.output_prefix
+    os.makedirs(prefix, exist_ok=True)
+    with open(os.path.join(prefix, "render.fa"), "w") as fh:
+        fasta_rows = [
+            engine.Row(r.q_id, r.q_first, r.q_last, r.cigar, r.t_id,
+                       r.t_first, r.t_last)
+            for r in results
+        ]
+        outputs.write_fasta(
+            index.seq_index, fasta_rows, fh, seq_idx, -1, False, False
+        )
+    if args.gfa_engine in ("seqwish", "pggb", "syng-native"):
+        gfa_text = region_mod.generate_gfa_seqwish(
+            index, results, seq_idx, engine=args.gfa_engine
+        )
+    else:
+        gfa_text = region_mod.generate_gfa(index, results, seq_idx)
+    with open(os.path.join(prefix, "render.gfa"), "w") as fh:
+        fh.write(gfa_text)
+    # One source interval a rendered path: (name, lo, hi, strand).
+    spans = []
+    for r in results:
+        lo, hi = sorted((r.q_first, r.q_last))
+        spans.append((index.seq_index.get_name(r.q_id), lo, hi,
+                      "+" if r.q_first <= r.q_last else "-"))
+    # Namespace table: rendered path name -> source sequence + range.
+    with open(os.path.join(prefix, "namespace.tsv"), "w") as fh:
+        fh.write("path\tsource\tstart\tend\tstrand\n")
+        for src_name, lo, hi, strand in spans:
+            fh.write(f"{src_name}:{lo}-{hi}\t{src_name}\t{lo}\t{hi}\t{strand}\n")
+    # Structured namespace records (sequence_namespace.rs:21
+    # SourceSequenceRecord + SourceInterval).
+    src_ids: dict[int, int] = {}
+    seq_records = []
+    intervals = []
+    for r, (nm, lo, hi, strand) in zip(results, spans):
+        if r.q_id not in src_ids:
+            src_ids[r.q_id] = len(src_ids)
+            seq_records.append(
+                dict(
+                    id=src_ids[r.q_id],
+                    name=nm,
+                    length=int(index.seq_index.get_len_from_id(r.q_id)),
+                    identity=dict(full_name=nm, pansn=_pansn(nm)),
+                )
+            )
+        intervals.append(
+            dict(source_sequence_id=src_ids[r.q_id], start=int(lo),
+                 end=int(hi), strand=strand)
+        )
+    with open(os.path.join(prefix, "namespace.json"), "w") as fh:
+        json.dump(
+            dict(sequences=seq_records, intervals=intervals), fh, indent=2
+        )
+    # Regional syng index over the rendered interval sequences
+    # (render_bundle.rs:24 syng_prefix).
+    SyngIndex.build([
+        (f"{nm}:{lo}-{hi}({strand})", seq_idx.fetch_sequence(nm, lo, hi))
+        for nm, lo, hi, strand in spans
+    ]).save(os.path.join(prefix, "region"))
+    # Step-translation tables (render_bundle.rs:40 StepTranslationRecord):
+    # every rendered path's graph steps back to source coordinates.
+    rendered_paths = [
+        rt_mod.RenderedPath(
+            rendered_path_id=pid,
+            rendered_name=f"{nm}:{iv['start']}-{iv['end']}",
+            source_name=nm,
+            source_sequence_id=iv["source_sequence_id"],
+            start=iv["start"],
+            end=iv["end"],
+            strand=iv["strand"],
+        )
+        for pid, ((nm, _, _, _), iv) in enumerate(zip(spans, intervals))
+    ]
+    step_samples = rt_mod.collect_gfa_step_samples(gfa_text, rendered_paths)
+    rt_mod.write_translation(prefix, rendered_paths, step_samples)
+    with open(os.path.join(prefix, "manifest.json"), "w") as fh:
+        json.dump(
+            dict(
+                format="impg-tpu-render-bundle",
+                version=1,
+                region=name,
+                engine=args.gfa_engine,
+                n_paths=len(results),
+                rendered_paths=len(rendered_paths),
+                step_samples=len(step_samples),
+                syng_prefix="region",
+                files=dict(
+                    fasta="render.fa",
+                    gfa="render.gfa",
+                    namespace="namespace.tsv",
+                    namespace_json="namespace.json",
+                    translation="translation.npz",
+                    translation_tsv="translation.tsv",
+                    syng="region.syngt",
+                ),
+            ),
+            fh,
+            indent=2,
+        )
+    if args.render_graph:
+        from impg_tpu_torch.graph.render_svg import render_svg
+
+        with open(os.path.join(prefix, "render.svg"), "w") as fh:
+            fh.write(render_svg(gfa_text))
+    print(f"Render bundle -> {prefix}", file=sys.stderr)
+    return 0
+
+
+def cmd_project(args) -> int:
+    from impg_tpu_torch.commands.project import run_project
+
+    try:
+        summary = run_project(
+            gfa_path=args.gfa,
+            gaf_path=args.gaf,
+            output=args.output,
+            output_format=args.output_format,
+            feature_id_mode=args.graph_feature_id_mode,
+            contribution_model=args.graph_contribution_model,
+            read_contributions=args.read_contributions,
+        )
+    except (ValueError, OSError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    print(
+        f"Projected {summary['retained_records']}/{summary['total_records']} "
+        f"GAF record(s), {summary['contributed_steps']} step(s) over "
+        f"{summary['nonzero_features']} feature(s) "
+        f"[graph {summary['graph_id']}, {summary['feature_id_mode']} ids] "
+        f"-> {summary['output_path']}",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def cmd_render_graph(args) -> int:
+    from impg_tpu_torch.graph.render_svg import render_svg
+
+    _write_out(args.output, render_svg(_read_gfa(args.gfa), width=args.width))
+    return 0
+
+
+def cmd_normalize_self_loops(args) -> int:
+    import json
+
+    from impg_tpu_torch.graph import selfloops
+    from impg_tpu_torch.graph.gfa import Gfa
+
+    text = _read_gfa(args.gfa)
+    if args.diagnose:
+        print(json.dumps(selfloops.diagnose(Gfa.parse(text)), indent=2))
+        return 0
+    out_text, stats = selfloops.normalize_self_loops(text, args.max_unit_len)
+    _write_out(args.output, out_text)
+    print(
+        f"normalized {stats.normalized_nodes} nodes, collapsed "
+        f"{stats.collapsed_runs} runs, removed "
+        f"{stats.removed_self_loop_links} self-loop links",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def cmd_normalize(args) -> int:
+    from impg_tpu_torch.graph import normalize as norm_mod
+
+    _write_out(args.output, norm_mod.normalize_gfa(_read_gfa(args.gfa)))
+    return 0
+
+
+def cmd_smooth(args) -> int:
+    from impg_tpu_torch.graph import smooth as smooth_mod
+
+    text = _read_gfa(args.gfa)
+    scoring = _poa_scoring(args.poa_scoring)
+    opts = dict(block_source=args.block_source, n_haps=args.n_haps,
+                max_node_length=args.max_node_length)
+    if args.poa_length:
+        targets = [
+            int(x) for x in args.poa_length.replace("/", ",").split(",") if x
+        ]
+        out_text = smooth_mod.smooth_gfa_passes(text, targets, scoring, **opts)
+    else:
+        out_text = smooth_mod.smooth_gfa(text, args.block_len, scoring, **opts)
+    _write_out(args.output, out_text)
+    return 0
+
+
+def cmd_crush(args) -> int:
+    from impg_tpu_torch.graph import crush as crush_mod
+
+    out_text, st = crush_mod.crush_gfa(
+        _read_gfa(args.gfa), max_span=args.max_span,
+        max_rounds=args.max_rounds, scoring=_poa_scoring(args.poa_scoring),
+    )
+    print(
+        f"crush: {st.rounds} rounds, {st.bubbles_resolved}/"
+        f"{st.bubbles_seen} bubbles resolved, nodes "
+        f"{st.nodes_before}->{st.nodes_after}, bp "
+        f"{st.bp_before}->{st.bp_after}"
+        + (f", {st.excluded_paths} paths excluded (no-op)"
+           if st.excluded_paths and st.rounds == 0 else ""),
+        file=sys.stderr,
+    )
+    _write_out(args.output, out_text)
+    return 0
+
+
+def cmd_graph(args, device: torch.device) -> int:
+    """Flat whole-FASTA graph build (reference: Args::Graph main.rs:5427);
+    partitioned mode runs this CLI's `partition -o gfa` on `device` (the
+    run_graph_build_partitioned role)."""
+    from impg_tpu_torch.commands import graph as graph_mod
+
+    files = _comma_list(args.sequence_files)
+    if not files:
+        print(
+            "error: no sequence files specified; use --sequence-files",
+            file=sys.stderr,
+        )
+        return 2
+    if args.partition_size:
+        import shutil
+        import tempfile
+
+        paf = args.paf
+        with tempfile.TemporaryDirectory() as tmp:
+            if paf is None:
+                paf = os.path.join(tmp, "aln.paf")
+                seqs = graph_mod.load_sequences(files)
+                rows = graph_mod.align_rows_native(
+                    seqs, sparsify=args.sparsify
+                )
+                _write_paf_rows(paf, rows)
+            rc = main(
+                [
+                    "partition", "-a", paf,
+                    "-w", str(args.partition_size),
+                    "-d", args.merge_distance,
+                    "-o", "gfa",
+                    "--sequence-files", ",".join(files),
+                    "--output-folder", tmp,
+                ],
+                device=device,
+            )
+            if rc != 0:
+                return rc
+            src = os.path.join(tmp, "partitions.gfa")
+            if args.output and args.output != "-":
+                shutil.copyfile(src, args.output)
+            else:
+                with open(src) as fh:
+                    sys.stdout.write(fh.read())
+        return 0
+
+    seqs = graph_mod.load_sequences(files)
+    paf_rows = graph_mod.paf_rows_from_file(args.paf) if args.paf else None
+    try:
+        text = graph_mod.build_graph_flat(
+            seqs,
+            engine=args.gfa_engine,
+            paf_rows=paf_rows,
+            poa_scoring=_poa_scoring(args.poa_scoring),
+            sparsify=args.sparsify,
+        )
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    _write_out(args.output if args.output != "-" else None, text)
+    return 0
+
+
+def _write_paf_rows(path: str, rows: list) -> None:
+    """Alignment row dicts (commands/align.py's shape) as PAF lines."""
+    from impg_tpu_torch.core import cigar as cigar_mod
+
+    with open(path, "w") as out:
+        for row in rows:
+            text = cigar_mod.format_runs(row["runs"])
+            out.write(
+                f"{row['qname']}\t{row['qlen']}\t{row['qstart']}"
+                f"\t{row['qend']}\t{row['strand']}\t{row['tname']}"
+                f"\t{row['tlen']}\t{row['tstart']}\t{row['tend']}"
+                f"\t{row['matches']}\t{row['block']}\t255\tcg:Z:{text}\n"
+            )
+
+
+def cmd_agz(args) -> int:
+    from impg_tpu_torch.io import agz as agz_mod
+
+    if args.action == "create":
+        if not args.output:
+            print("error: agz create needs -o OUTPUT", file=sys.stderr)
+            return 2
+        stats = agz_mod.create_agz(args.output, args.files)
+        print(
+            f"Archived {stats['contigs']} contig(s) from "
+            f"{stats['samples']} sample(s) -> {args.output}",
+            file=sys.stderr,
+        )
+        return 0
+    for f in args.files:
+        arc = agz_mod.AgzArchive(f)
+        try:
+            for sample in arc.list_samples():
+                for contig in arc.list_contigs(sample):
+                    L = arc.get_sequence_length(f"{contig}@{sample}")
+                    print(f"{sample}\t{contig}\t{L}")
+        finally:
+            arc.close()
+    return 0
+
+
+def cmd_gfa2vcf(args) -> int:
+    from impg_tpu_torch.graph import vcf as vcf_mod
+
+    text = _read_gfa(args.gfa)
+    gen = (
+        vcf_mod.gfa_to_vcf_flubbles
+        if args.sites == "flubbles"
+        else vcf_mod.gfa_to_vcf
+    )
+    # Multiple -r/--reference values call against each reference path in
+    # turn (main.rs:5811 repeatable reference-name hints); records after
+    # the first block reuse its header.
+    for i, ref in enumerate(args.reference or [None]):
+        out_text = gen(text, ref)
+        if i > 0:
+            out_text = "\n".join(
+                l for l in out_text.splitlines() if not l.startswith("#")
+            )
+            if out_text:
+                out_text += "\n"
+        sys.stdout.write(out_text)
+    return 0
+
+
+def cmd_graph_report(args) -> int:
+    """Graph characterization on the GFA columns (gfa_columns.report_columns,
+    the same dict as the dict-model gfa.report); the port's tokenizer
+    needs the native library, where impg_tpu falls back to the dict
+    model."""
+    from impg_tpu_torch.graph import gfa as gfa_mod
+    from impg_tpu_torch.graph.gfa_columns import (parse_gfa_columns,
+                                                  report_columns)
+
+    text = _read_gfa(args.gfa)
+    rep = report_columns(parse_gfa_columns(text))
+    if not args.flubbles:
+        sys.stdout.write(gfa_mod.report_text(rep, args.format))
+        return 0
+    from impg_tpu_torch.graph import bubbles as bubbles_mod
+
+    refs = (
+        [r for r in args.reference.split(",") if r]
+        if args.reference
+        else None
+    )
+    dec = bubbles_mod.decompose_flubbles(text, refs)
+    class_counts: dict[str, int] = {}
+    for site in dec.sites:
+        class_counts[site.site_class] = class_counts.get(site.site_class, 0) + 1
+    rep["flubbles"] = {
+        "reference_path": dec.reference_path,
+        "sites": len(dec.sites),
+        "leaf_sites": dec.leaf_sites,
+        "level_counts": {str(k): v for k, v in dec.level_counts().items()},
+        "class_counts": class_counts,
+    }
+    sys.stdout.write(gfa_mod.report_text(rep, args.format))
+    if args.format == "md":
+        sys.stdout.write(
+            bubbles_mod.architecture_text(dec, args.top_sites) + "\n"
         )
     return 0
 
@@ -2371,38 +2956,306 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p_s2g.add_argument("-o", "--output", help="Output GFA (default stdout)")
     p_s2g.set_defaults(func=cmd_syng2gfa)
+
+    p_lace = sub.add_parser(
+        "lace", help="Combine per-window GFAs (or VCFs) into one file"
+    )
+    p_lace.add_argument(
+        "--gfa-files", action="append", help="GFA files (repeat/comma-separate)"
+    )
+    p_lace.add_argument("--gfa-list", help="File listing GFA paths, one per line")
+    p_lace.add_argument(
+        "--files", action="append",
+        help="Input files, GFA or VCF (reference --files naming)",
+    )
+    p_lace.add_argument(
+        "--file-list", help="File listing input paths, one per line"
+    )
+    p_lace.add_argument(
+        "--format", choices=["gfa", "vcf", "auto"], default="auto",
+        help="Input kind; auto = by first file's extension "
+        "(main.rs determine_file_format)",
+    )
+    p_lace.add_argument("--output", required=True)
+    p_lace.add_argument(
+        "--fill-gaps", action="store_true",
+        help="Fill inter-range gaps from --sequence-files",
+    )
+    p_lace.add_argument("--sequence-files", action="append")
+    p_lace.add_argument(
+        "--sequence-list",
+        help="Text file listing sequence file paths (alternative to "
+        "--sequence-files)",
+    )
+    p_lace.set_defaults(func=cmd_lace)
+
+    p_aln = sub.add_parser(
+        "align", help="All-vs-all alignment of FASTA sequences -> PAF"
+    )
+    p_aln.add_argument(
+        "-f", "--fasta-files", required=True, action="append",
+        help="FASTA file(s) (repeat/comma-separate)",
+    )
+    p_aln.add_argument("-o", "--output", help="Output PAF (default stdout)")
+    p_aln.add_argument("--min-anchors", type=int, default=3)
+    p_aln.add_argument("--max-gap", type=int, default=10_000)
+    p_aln.add_argument("--min-chain-span", type=int, default=100)
+    p_aln.add_argument(
+        "--sparsify", default="none",
+        help="Pair selection: none | random:P | knn:K (mash-sketch "
+        "nearest groups, PanSN-aware)",
+    )
+    p_aln.add_argument("--mash-k", type=int, default=15)
+    p_aln.add_argument("--sketch-size", type=int, default=1000)
+    p_aln.add_argument(
+        "--pair", action="append",
+        help="Align only QUERY:TARGET (repeatable; job-list workers)",
+    )
+    p_aln.add_argument(
+        "--run-joblist", metavar="FILE",
+        help="Execute an existing joblist (one shell command per line) "
+        "with parallel slots + progress",
+    )
+    p_aln.add_argument(
+        "--jobs", type=int,
+        help="Parallel slots for --run-joblist (default: CPU count)",
+    )
+    p_aln.add_argument(
+        "--job-list", action="store_true",
+        help="Emit one alignment command per selected pair instead of "
+        "aligning (cluster execution)",
+    )
+    p_aln.add_argument("--scoring", default="1,4,6,2",
+                       help="match,mismatch,gap_open,gap_ext")
+    p_aln.set_defaults(func=cmd_align)
+
+    p_rnd = sub.add_parser(
+        "render", help="Write a local-graph render bundle for a region"
+    )
+    _add_common_query_opts(p_rnd)
+    p_rnd.add_argument("-r", "--target-range", required=True)
+    p_rnd.add_argument("-d", "--merge-distance", required=True)
+    p_rnd.add_argument("--sequence-files", action="append")
+    p_rnd.add_argument(
+        "--sequence-list",
+        help="Text file listing sequence file paths (alternative to "
+        "--sequence-files)",
+    )
+    p_rnd.set_defaults(_needs_sequences=True)
+    p_rnd.add_argument("-O", "--output-prefix", required=True,
+                       help="Bundle directory")
+    p_rnd.add_argument(
+        "--gfa-engine", choices=["poa", "seqwish", "pggb", "syng-native"], default="poa"
+    )
+    p_rnd.add_argument("-x", "--transitive", action="store_true")
+    p_rnd.add_argument("-m", "--max-depth", type=int, default=2)
+    p_rnd.add_argument(
+        "--render-graph", action="store_true",
+        help="Also write render.svg (native SVG graph rendering)",
+    )
+    p_rnd.set_defaults(func=cmd_render)
+
+    p_prj = sub.add_parser(
+        "project",
+        help="Project a GAF onto a GFA's segment feature space "
+        "(pack TSV or projection bundle)",
+    )
+    p_prj.add_argument(
+        "--gfa", "--graph", dest="gfa", required=True,
+        help="GFA whose S-line names appear in the GAF walks",
+    )
+    p_prj.add_argument(
+        "--gaf", required=True,
+        help="GAF alignments with >segA<segB (or segA+,segB-) walks",
+    )
+    p_prj.add_argument(
+        "-o", "--output-format", default="proj",
+        help="proj (projection bundle) or pack-tsv",
+    )
+    p_prj.add_argument(
+        "-O", "--output", required=True,
+        help="Projection directory or pack TSV path",
+    )
+    p_prj.add_argument(
+        "--read-contributions",
+        help="Read-contribution table path for -o pack-tsv "
+        "(bundles always include one)",
+    )
+    p_prj.add_argument(
+        "--graph-feature-id-mode",
+        choices=["auto", "dense", "segment-name"], default="auto",
+        help="How S-line names map to integer pack feature IDs",
+    )
+    p_prj.add_argument(
+        "--graph-contribution-model",
+        choices=["raw", "length-normalized"], default="raw",
+        help="Contribution model declared for graph-node evidence",
+    )
+    p_prj.set_defaults(func=cmd_project)
+
+    p_rg = sub.add_parser(
+        "render-graph", help="Render a GFA as SVG (depth-colored 1D layout)"
+    )
+    p_rg.add_argument("gfa", help="GFA file (or - for stdin)")
+    p_rg.add_argument("--output", help="Output SVG (default stdout)")
+    p_rg.add_argument("--width", type=int, default=1200)
+    p_rg.set_defaults(func=cmd_render_graph)
+
+    p_nsl = sub.add_parser(
+        "normalize-self-loops",
+        help="Collapse path-local repeat self-loop runs into run segments",
+    )
+    p_nsl.add_argument("gfa", help="GFA file (or - for stdin)")
+    p_nsl.add_argument("--max-unit-len", type=int, default=0)
+    p_nsl.add_argument("--diagnose", action="store_true",
+                       help="Report self-loop statistics only")
+    p_nsl.add_argument("--output", help="Output GFA (default stdout)")
+    p_nsl.set_defaults(func=cmd_normalize_self_loops)
+
+    p_norm = sub.add_parser(
+        "normalize", help="GFAffix-style shared-affix normalization of a GFA"
+    )
+    p_norm.add_argument("gfa", help="GFA file (or - for stdin)")
+    p_norm.add_argument("--output", help="Output GFA (default stdout)")
+    p_norm.set_defaults(func=cmd_normalize)
+
+    p_sm = sub.add_parser(
+        "smooth", help="POA-smooth a GFA (sort -> blocks -> POA -> lace)"
+    )
+    p_sm.add_argument("gfa", help="GFA file (or - for stdin)")
+    p_sm.add_argument("--block-len", type=int, default=1100)
+    p_sm.add_argument(
+        "-G", "--poa-length",
+        help="Comma-separated multi-pass target POA lengths (pggb's "
+        "-G 700,1100); overrides --block-len",
+    )
+    p_sm.add_argument(
+        "--n-haps", type=int,
+        help="Haplotype count for the block weight budget "
+        "(max_block_weight = target * n_haps; default: path count)",
+    )
+    p_sm.add_argument(
+        "--max-node-length", type=int, default=0,
+        help="Chop nodes to this length before block decomposition "
+        "(reference default 100; 0 = no chop)",
+    )
+    p_sm.add_argument(
+        "--block-source", default="fixed", choices=["fixed", "flubble"],
+        help="Block boundaries: fixed bp, or flubble-aware (never split "
+        "a variation site)",
+    )
+    p_sm.add_argument("--poa-scoring", default="1,4,6,2,26,1")
+    p_sm.add_argument("--output", help="Output GFA (default stdout)")
+    p_sm.set_defaults(func=cmd_smooth)
+
+    p_gr = sub.add_parser(
+        "graph",
+        help="Build a whole-input pangenome graph from sequence files "
+        "(align -> engine; or use a given PAF)",
+    )
+    p_gr.add_argument(
+        "--sequence-files", "-f", action="append",
+        help="FASTA file(s) (repeat or comma-separate)",
+    )
+    p_gr.add_argument(
+        "--sequence-list",
+        help="Text file listing sequence file paths (alternative to "
+        "--sequence-files)",
+    )
+    p_gr.add_argument(
+        "-a", "--paf",
+        help="Pre-computed PAF (skips the alignment step, main.rs:5433)",
+    )
+    p_gr.add_argument(
+        "-g", "-o", "--output", default="-",
+        help="Output GFA path ('-' = stdout)",
+    )
+    p_gr.add_argument(
+        "--gfa-engine", default="seqwish",
+        choices=["poa", "seqwish", "pggb", "syng-native"],
+    )
+    p_gr.add_argument(
+        "--partition-size",
+        help="Partitioned mode: partition into ~SIZE-bp loci, build each, "
+        "lace (k/m/g suffixes ok)",
+    )
+    p_gr.add_argument(
+        "-d", "--merge-distance", default="10k",
+        help="Partitioned mode: merge ranges separated by at most D bp",
+    )
+    p_gr.add_argument(
+        "--sparsify", default="none",
+        help="Alignment pair sparsification: none|random:P|knn:K",
+    )
+    p_gr.add_argument("--poa-scoring", default="1,4,6,2,26,1")
+    p_gr.set_defaults(func=cmd_graph)
+
+    p_agz = sub.add_parser(
+        "agz",
+        help="AGC-role compressed sequence archives (create from FASTA, "
+        "list; usable wherever --sequence-files takes FASTA)",
+    )
+    p_agz.add_argument("action", choices=["create", "list"])
+    p_agz.add_argument("files", nargs="+")
+    p_agz.add_argument("-o", "--output")
+    p_agz.set_defaults(func=cmd_agz)
+
+    p_cr = sub.add_parser(
+        "crush",
+        help="Resolve anchor-bounded bubbles by POA realignment "
+        "(path spellings preserved exactly)",
+    )
+    p_cr.add_argument("gfa", help="GFA file (or - for stdin)")
+    p_cr.add_argument("--max-span", type=int, default=10_000)
+    p_cr.add_argument("--max-rounds", type=int, default=4)
+    p_cr.add_argument("--poa-scoring", default="1,4,6,2,26,1")
+    p_cr.add_argument("--output", help="Output GFA (default stdout)")
+    p_cr.set_defaults(func=cmd_crush)
+
+    p_vcf = sub.add_parser("gfa2vcf", help="Call variants from a GFA")
+    p_vcf.add_argument("gfa", help="GFA file (or - for stdin)")
+    p_vcf.add_argument(
+        "-r", "--reference", action="append",
+        help="Reference path name or prefix (repeatable; default: "
+        "first path)",
+    )
+    p_vcf.add_argument(
+        "--sites", default="anchors", choices=["anchors", "flubbles"],
+        help="Site source: per-path anchor chains (biallelic records) or "
+        "the flubble decomposition (multi-allelic site records)",
+    )
+    p_vcf.set_defaults(func=cmd_gfa2vcf)
+
+    p_rep = sub.add_parser("graph-report", help="Characterize a GFA graph")
+    p_rep.add_argument("gfa", help="GFA file (or - for stdin)")
+    p_rep.add_argument(
+        "--format", default="md", choices=["md", "json", "tsv"]
+    )
+    p_rep.add_argument(
+        "--flubbles", action="store_true",
+        help="Include nested variation-site (flubble) decomposition",
+    )
+    p_rep.add_argument(
+        "--reference",
+        help="Comma-separated reference path names/prefixes for the "
+        "flubble decomposition (default: first path)",
+    )
+    p_rep.add_argument("--top-sites", type=int, default=5)
+    p_rep.set_defaults(func=cmd_graph_report)
     return ap
 
 
 # Subcommands that take no device.
 _HOST_COMMANDS = (cmd_index, cmd_export_1aln, cmd_export_tpa, cmd_read_index,
-                  cmd_syng2gfa, cmd_syng_repair, cmd_infer)
-
-
-def _command_of(argv: list[str]) -> str | None:
-    """The subcommand named in `argv`: its first token that is not a global
-    option or a global option's value."""
-    skip = False
-    for tok in argv:
-        if skip:
-            skip = False
-        elif tok in _VALUE_OPTS:
-            skip = True
-        elif not tok.startswith("-"):
-            return tok
-    return None
+                  cmd_syng2gfa, cmd_syng_repair, cmd_infer, cmd_lace,
+                  cmd_align, cmd_render, cmd_project, cmd_render_graph,
+                  cmd_normalize_self_loops, cmd_normalize, cmd_smooth,
+                  cmd_crush, cmd_agz, cmd_gfa2vcf, cmd_graph_report)
 
 
 def main(argv=None, device=None) -> int:
     """Run the port's CLI on `argv`.  `device` defaults to cuda:0; the tests
     pass "cpu"."""
-    argv = sys.argv[1:] if argv is None else list(argv)
-    command = _command_of(argv)
-    if command in UNPORTED_COMMANDS:
-        _fail(f"`{command}` is not yet ported to impg_tpu_torch "
-              "(ported: index, query, stats, partition, refine, similarity, "
-              "syng, map, genotype, sort, export-1aln, export-tpa, "
-              "read-index, syng2gfa, syng-repair, infer)")
     args = build_parser().parse_args(argv)
     # --sequence-list: file of sequence paths, normalized into
     # args.sequence_files so every downstream path sees one flag

@@ -1,11 +1,11 @@
 """Lace: combine per-window GFAs into one graph (reference: commands/lace.rs).
 
-The port's copy of impg_tpu/graph/lace.py up to `lace_gfas`, which collected
-`partition -o gfa|vcf` laces its per-partition graphs with, and
+The port's copy of impg_tpu/graph/lace.py: `lace_gfas`, which collected
+`partition -o gfa|vcf` laces its per-partition graphs with,
 `split_path_name`, which the GAF-to-PAF surjection of `map --graph -o paf`
-(genotype/graph.py) reads a path's source frame with
-(tests/test_torch_poa.py holds `lace_gfas`' text equal).  `lace_files` and
-the `lace` command are not yet ported.
+(genotype/graph.py) reads a path's source frame with, and `lace_files`, the
+`lace` command's reader of plain and gzipped GFAs
+(tests/test_torch_poa.py and test_torch_graph_cmd.py hold the text equal).
 
 Semantics implemented (lace.rs:214-1100):
   - read S/L/P lines of every input GFA, renumbering nodes into a combined
@@ -271,3 +271,22 @@ def lace_gfas(
         )
         lines.append(f"P\t{key}:{start}-{end}\t{walk}\t*")
     return "\n".join(lines) + "\n"
+
+
+def lace_files(
+    gfa_files: list[str],
+    fill_gaps: bool = False,
+    sequence_index=None,
+) -> str:
+    import gzip
+
+    texts = []
+    for path in gfa_files:
+        if path.endswith(".gz"):
+            with gzip.open(path, "rt") as fh:
+                texts.append(fh.read())
+        else:
+            with open(path) as fh:
+                texts.append(fh.read())
+    return lace_gfas(texts, fill_gaps, sequence_index)
+

@@ -1,10 +1,11 @@
 """GFA -> VCF: call variants from path walks against a reference path
 (reference: lib.rs:930 gfa_to_vcf_string via POVU flubble decomposition).
 
-The port's copy of impg_tpu/graph/vcf.py's `gfa_to_vcf` and its helpers
-(tests/test_torch_poa.py holds the text equal): the VCF of `query -o vcf`
-and `partition -o vcf`.  The flubble caller `gfa_to_vcf_flubbles` needs the
-bubble decomposition, which the port has not ported.
+The port's copy of impg_tpu/graph/vcf.py: `gfa_to_vcf` and its helpers,
+the VCF of `query -o vcf`, `partition -o vcf` and `gfa2vcf`
+(tests/test_torch_poa.py holds the text equal), and `gfa_to_vcf_flubbles`,
+the multi-allelic caller of `gfa2vcf --sites flubbles` over
+graph/bubbles.py's decomposition (tests/test_torch_gfa_tools.py).
 
 Method (path-anchored bubble calling): for every non-reference path, match
 its node walk against the reference walk via a longest increasing chain of
@@ -264,4 +265,127 @@ def gfa_to_vcf(gfa_text: str, reference_path: str | None = None) -> str:
         )
     return "\n".join(out) + "\n"
 
+
+def gfa_to_vcf_flubbles(
+    gfa_text: str, reference_path: str | None = None
+) -> str:
+    """Multi-allelic site calling from the flubble decomposition
+    (reference: lib.rs:930 gfa_to_vcf_string via POVU flubbles): one record
+    per top-level variation site, ALT = every non-reference interior
+    spelling, per-path GT = allele index ('.' for paths not traversing
+    the site)."""
+    from impg_tpu_torch.graph import bubbles as bubbles_mod
+
+    gfa = Gfa.parse(gfa_text)
+    header_only = (
+        "##fileformat=VCFv4.2\n"
+        "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n"
+    )
+    if not gfa.paths:
+        return header_only
+    refs = [reference_path] if reference_path else None
+    dec = bubbles_mod.decompose_flubbles(gfa_text, refs)
+    ref_name = dec.reference_path
+    ref_steps = dict(gfa.paths)[ref_name]
+    ref_off = _ref_offsets(gfa, ref_steps)
+    ref_pos_of_step = {s: i for i, s in enumerate(ref_steps)}
+    ref_seq = _walk_seq(gfa, ref_steps).decode()
+    chrom, base_offset = _ref_frame(ref_name)
+
+    def parse_token(tok: str):
+        return (tok[:-1], tok.endswith("-"))
+
+    sample_names = [n for n, _ in gfa.paths if n != ref_name]
+    lines: list[tuple[int, str]] = []
+    for site in dec.sites:
+        if site.level != 0:
+            continue
+        a = parse_token(site.start)
+        b = parse_token(site.end)
+        # Interior spelling per path between the unique a..b occurrences.
+        interiors: dict[str, str | None] = {}
+        for name, steps in gfa.paths:
+            try:
+                ia = steps.index(a)
+                ib = steps.index(b)
+            except ValueError:
+                interiors[name] = None
+                continue
+            if ib < ia:
+                interiors[name] = None
+                continue
+            interiors[name] = _walk_seq(gfa, steps[ia + 1 : ib]).decode()
+        ref_allele = interiors.get(ref_name)
+        if ref_allele is None or a not in ref_pos_of_step:
+            continue
+        alts: list[str] = []
+        for name in sample_names:
+            iv = interiors.get(name)
+            if iv is not None and iv != ref_allele and iv not in alts:
+                alts.append(iv)
+        if not alts:
+            continue
+        pos0 = ref_off[ref_pos_of_step[a] + 1]
+        alleles = [ref_allele] + alts
+        if any(not al for al in alleles) or len(
+            {len(al) for al in alleles}
+        ) > 1:
+            # Indel/complex site: left-anchor on the preceding ref base.
+            anchor_pos = pos0 - 1
+            if anchor_pos < 0:
+                continue
+            anchor = ref_seq[anchor_pos]
+            alleles = [anchor + al for al in alleles]
+            pos = anchor_pos
+        else:
+            lead = 0
+            while lead < len(alleles[0]) and len(
+                {al[lead] for al in alleles}
+            ) == 1:
+                lead += 1
+            trail = 0
+            while trail < len(alleles[0]) - lead and len(
+                {al[len(al) - 1 - trail] for al in alleles}
+            ) == 1:
+                trail += 1
+            alleles = [al[lead : len(al) - trail] for al in alleles]
+            pos = pos0 + lead
+            if not alleles[0]:
+                continue
+        gt_cols = []
+        an = 0
+        ac = [0] * len(alts)
+        for name in sample_names:
+            iv = interiors.get(name)
+            if iv is None:
+                gt_cols.append(".")
+                continue
+            an += 1
+            if iv == ref_allele:
+                gt_cols.append("0")
+            else:
+                k = alts.index(iv) + 1
+                ac[k - 1] += 1
+                gt_cols.append(str(k))
+        lines.append(
+            (
+                pos,
+                f"{chrom}\t{base_offset + pos + 1}\t{site.id}\t"
+                f"{alleles[0]}\t{','.join(alleles[1:])}\t.\t.\t"
+                f"AC={','.join(str(c) for c in ac)};AN={an}\tGT\t"
+                + "\t".join(gt_cols),
+            )
+        )
+    out = [
+        "##fileformat=VCFv4.2",
+        f"##reference={ref_name}",
+        _INFO_HEADER_AC,
+        _INFO_HEADER_AN,
+        '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">',
+        "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+        + "\t".join(sample_names),
+    ]
+    for _, line in sorted(lines):
+        out.append(line)
+    return "\n".join(out) + "\n"
 

@@ -1,9 +1,10 @@
-"""Reader of the AGC-role compressed sequence archive (.agz).
+"""AGC-role compressed sequence archive (.agz): create, list, range-fetch.
 
-The port's copy of impg_tpu/io/agz.py's `AgzArchive`
-(tests/test_torch_sequence.py holds it equal to impg_tpu's on archives that
-impg_tpu's `create_agz` writes).  The writer serves only the `agz` command, which the
-port has not ported.
+The port's copy of impg_tpu/io/agz.py: `AgzArchive`, the reader
+(tests/test_torch_sequence.py holds it equal to impg_tpu's), and
+`create_agz`, the writer of `agz create` (tests/test_torch_gfa_tools.py
+holds its archives equal to impg_tpu's byte for byte: zlib blocks and a
+JSON directory, no time field).
 
 Role model: the reference's AGC backend (agc_index.rs:9 AgcIndex over the
 ragc crate): multi-sample archives addressed as ``contig@sample`` (or bare
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import struct
 import zlib
 
@@ -125,3 +127,71 @@ class AgzArchive:
         raw = b"".join(parts)
         lo = start - first * self.block_raw
         return raw[lo : lo + (end - start)]
+
+
+def create_agz(
+    out_path: str,
+    fasta_files: list[str],
+    sample_names: list[str] | None = None,
+    block_raw: int = BLOCK_RAW,
+) -> dict:
+    """Create an archive from FASTA files (one sample per file, like
+    `agc create`; sample name defaults to the file stem)."""
+    from impg_tpu_torch.syng.pack import read_sequences
+
+    if sample_names is None:
+        sample_names = []
+        for f in fasta_files:
+            base = os.path.basename(f)
+            for suf in (".gz", ".fa", ".fasta", ".fna"):
+                if base.endswith(suf):
+                    base = base[: -len(suf)]
+            sample_names.append(base)
+    # Two FASTAs may share a basename stem (same name, different dirs):
+    # writing both under one sample key would orphan the first file's
+    # blocks silently. Refuse up front.
+    dupes = {s for s in sample_names if sample_names.count(s) > 1}
+    if dupes:
+        raise ValueError(
+            "duplicate sample name(s) in agz create: "
+            + ", ".join(sorted(dupes))
+            + " — pass explicit sample_names to disambiguate"
+        )
+    if len(sample_names) != len(fasta_files):
+        raise ValueError(
+            f"sample_names has {len(sample_names)} entries for "
+            f"{len(fasta_files)} FASTA files"
+        )
+    directory: dict = {"samples": {}}
+    n_contigs = 0
+    with open(out_path, "wb") as fh:
+        fh.write(MAGIC)
+        for f, sample in zip(fasta_files, sample_names):
+            contigs = {}
+            for name, seq in read_sequences(f):
+                if name in contigs:
+                    # Overwriting would orphan the first contig's blocks
+                    # silently (names are whitespace-truncated, so
+                    # '>chr1 foo' and '>chr1 bar' collide).
+                    raise ValueError(
+                        f"{f}: duplicate contig name '{name}' within "
+                        f"sample '{sample}'"
+                    )
+                blocks = []
+                for off in range(0, max(len(seq), 1), block_raw):
+                    raw = seq[off : off + block_raw]
+                    comp = zlib.compress(raw, 6)
+                    blocks.append([fh.tell(), len(comp)])
+                    fh.write(comp)
+                contigs[name] = {"length": len(seq), "blocks": blocks}
+                n_contigs += 1
+            directory["samples"][sample] = contigs
+        directory["block_raw"] = block_raw
+        footer = zlib.compress(
+            json.dumps(directory, separators=(",", ":")).encode(), 6
+        )
+        footer_off = fh.tell()
+        fh.write(footer)
+        fh.write(struct.pack("<QQ", footer_off, len(footer)))
+    return {"samples": len(sample_names), "contigs": n_contigs}
+

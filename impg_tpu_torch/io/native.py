@@ -25,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import os
+import shutil
 import subprocess
 from typing import Optional
 
@@ -106,11 +107,39 @@ def _stale() -> bool:
                        for f in _SRC_NAMES)
 
 
+def _compile(flags: list, srcs: list, out: str) -> bool:
+    """One g++ a source, all started together, then one link into `out`:
+    whether every step succeeded."""
+    objdir = out + ".objs"
+    os.makedirs(objdir, exist_ok=True)
+    objs = [os.path.join(objdir, os.path.basename(s) + ".o") for s in srcs]
+    procs = []
+    try:
+        procs = [subprocess.Popen(["g++", *flags, "-c", s, "-o", o],
+                                  stdout=subprocess.DEVNULL,
+                                  stderr=subprocess.DEVNULL)
+                 for s, o in zip(srcs, objs)]
+        if any(p.wait(timeout=240) != 0 for p in list(procs)):
+            return False
+        subprocess.run(["g++", *flags, "-shared", "-o", out, *objs],
+                       check=True, capture_output=True, timeout=240)
+        return True
+    except (OSError, subprocess.SubprocessError):
+        return False
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(objdir, ignore_errors=True)
+
+
 def _build() -> bool:
     """g++ the sources into _SO_PATH with impg_tpu/native/Makefile's flags
-    (-mavx2 only where the CPU has it, a baseline build as the fallback).
-    A lock file serialises concurrent builders (test workers); each writes a
-    temporary file and renames it into place."""
+    (-mavx2 only where the CPU has it, a baseline build as the fallback),
+    one compiler process a source at once.  A lock file serialises
+    concurrent builders (test workers); each writes a temporary file and
+    renames it into place."""
     srcs = [os.path.join(_NATIVE_DIR, f) for f in _SRC_NAMES]
     if not all(os.path.exists(s) for s in srcs):
         return False
@@ -122,18 +151,10 @@ def _build() -> bool:
         tmp = f"{_SO_PATH}.{os.getpid()}.tmp"
         isa_choices = [["-mavx2"], []] if _host_supports_avx2() else [[]]
         for isa in isa_choices:
-            try:
-                subprocess.run(
-                    ["g++", "-O3", *isa, "-std=c++17", "-fPIC", "-Wall",
-                     "-Wextra", "-pthread", "-shared", "-o", tmp, *srcs],
-                    check=True,
-                    capture_output=True,
-                    timeout=240,
-                )
-            except (OSError, subprocess.SubprocessError):
-                continue
-            os.replace(tmp, _SO_PATH)
-            return True
+            if _compile(["-O3", *isa, "-std=c++17", "-fPIC", "-Wall",
+                         "-Wextra", "-pthread"], srcs, tmp):
+                os.replace(tmp, _SO_PATH)
+                return True
     return False
 
 

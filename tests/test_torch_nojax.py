@@ -18,7 +18,11 @@ region graph); the tracepoint files (`export-1aln --binary` and
 `export-tpa`, then `query -x` on each, approximate and with sequences, on
 the device engine); `-o gbwt` of a PAF and of a `.syngt` query; and the
 syng tools (`read-index`, `infer` with `--gaf`, `--read-index` and
-`--write-haplotypes`, `syng2gfa`, `syng-repair`)."""
+`--write-haplotypes`, `syng2gfa`, `syng-repair`); and the GFA toolbox
+(`align` and its job list, `graph` on the poa and pggb engines, with a
+given PAF and partitioned, `normalize`, `normalize-self-loops`, `smooth`,
+`crush`, `render-graph`, `lace`, `agz create|list`, a `render` bundle over
+the archive, `project`, `gfa2vcf` and `graph-report`)."""
 
 import os
 import random
@@ -232,6 +236,45 @@ runs = (
 for argv, out in runs:
     assert impg_tpu_torch.cli.main(argv, device="cpu") == 0, argv
     assert os.path.getsize(out) > 0, out
+import impg_tpu_torch.commands.graph
+import impg_tpu_torch.commands.project
+import impg_tpu_torch.commands.render_translation
+import impg_tpu_torch.graph.render_svg
+import impg_tpu_torch.graph.vcf_lace
+import impg_tpu_torch.io.agz
+runs = (
+    (["align", "-f", chain_fa, "-o", "aln.paf"], "aln.paf"),
+    (["align", "-f", chain_fa, "--job-list", "-o", "jobs.txt"], "jobs.txt"),
+    (["graph", "-f", chain_fa, "--gfa-engine", "pggb", "-o", "whole.gfa"],
+     "whole.gfa"),
+    (["graph", "-f", chain_fa, "--gfa-engine", "poa", "-o", "poa.gfa"],
+     "poa.gfa"),
+    (["graph", "-f", chain_fa, "-a", "aln.paf", "-o", "given.gfa"],
+     "given.gfa"),
+    (["graph", "-f", chain_fa, "--partition-size", "1000", "-d", "100",
+      "-o", "parts.gfa"], "parts.gfa"),
+    (["normalize", "region.gfa", "--output", "n.gfa"], "n.gfa"),
+    (["normalize-self-loops", "region.gfa", "--output", "nsl.gfa"],
+     "nsl.gfa"),
+    (["smooth", "region.gfa", "--block-len", "400", "--output", "sm.gfa"],
+     "sm.gfa"),
+    (["crush", "region.gfa", "--output", "cr.gfa"], "cr.gfa"),
+    (["render-graph", "region.gfa", "--output", "r.svg"], "r.svg"),
+    (["lace", "--gfa-files", "region.gfa,pggb.gfa", "--output",
+      "laced.gfa.gz"], "laced.gfa.gz"),
+    (["agz", "create", chain_fa, "-o", "chain.agz"], "chain.agz"),
+    (["render", "-a", paf, "-r", "ref:500-2500", "-d", "100", "-x",
+      "--sequence-files", "chain.agz", "-O", "bundle", "--render-graph",
+      "--gfa-engine", "pggb"], "bundle/render.svg"),
+    (["project", "--gfa", gfa, "--gaf", "g.gaf", "-O", "p.proj"],
+     "p.proj/sample.pack.tsv"),
+    (["gfa2vcf", "region.gfa", "--sites", "flubbles"], None),
+    (["graph-report", "region.gfa", "--flubbles", "--format", "json"], None),
+    (["agz", "list", "chain.agz"], None),
+    (["normalize-self-loops", "region.gfa", "--diagnose"], None))
+for argv, out in runs:
+    assert impg_tpu_torch.cli.main(argv, device="cpu") == 0, argv
+    assert out is None or os.path.getsize(out) > 0, out
 loaded = [m for m, mod in sys.modules.items() if blocked(m) and mod is not None]
 assert not loaded, loaded
 assert not tried, tried
