@@ -1258,6 +1258,45 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def mesh_bound_ms(eng, host, batches, depths, approximate: bool) -> float:
+    """K8's bound: the sum of its launches' bounds, each by the rules of
+    `[3 kernels]` (`check_windows`, `check_lanes`, `check_compact`) at its
+    shard's shapes.  Per depth and shard: K-B over the depth's queries on
+    the shard's records; the lane kernel over the shard's lanes, those it
+    lists and its valid lanes; K-D over the same lanes.  The shards' valid
+    lanes add up to the depth's hits, so those bytes are counted once a
+    depth.  All are bound by bytes, so the bounds add as the bytes do."""
+    from impg_tpu_torch.query import device as D
+
+    rows = len(D.mask_fields(D.field_mask(host.LEAN_FIELDS)))
+    per_listed = (4 * 4 + 8 * 4 + 4) if approximate else 16 + 40
+    n_bytes = 0
+    for batch, depth in zip(batches, depths):
+        n_bytes += depth["hits"] * rows * 4 * 3  # K-C writes, K-D moves
+        for sh in eng.shards:
+            d = sh.dindex
+            q = [torch.from_numpy(a).to(d.device) for a in batch]
+            win_lo, k = D.stab_windows(d.tgt_offsets, d.t_start, d.cummax_te,
+                                       *q, d.window_iters)
+            b = int(k.shape[0])
+            offs = torch.zeros(b + 1, dtype=torch.int64, device=d.device)
+            offs[1:] = torch.cumsum(k, 0)
+            n_lanes = int(offs[-1])
+            listed = lane_census(D, (d, offs, win_lo, q[1], q[2]),
+                                 dict(lane_base=0, n_lanes=n_lanes,
+                                      clip_overlap=True), approximate)
+            n_seqs = d.tgt_offsets.shape[0] - 1
+            tid = q[0].long()
+            ok = (tid >= 0) & (tid < n_seqs)
+            t = tid.clamp(0, n_seqs - 1)
+            seg_n = (d.tgt_offsets[t + 1] - d.tgt_offsets[t]).double()
+            probes = int((torch.ceil(torch.log2(seg_n + 1)) * ok).sum()) * 2
+            n_bytes += b * 28 + 8 + int(ok.sum()) * 8 + probes * 4  # K-B
+            n_bytes += n_lanes * 9 + b * 20 + listed * per_listed  # lanes
+            n_bytes += n_lanes  # K-D's valid bytes
+    return bound(n_bytes)["bound_ms"]
+
+
 def mesh_walk(label, eng, index, targets, kernels, host, native, path,
               approximate=False) -> str:
     """The depth-2 walk of the seeds through mesh engine `eng`, twice: with
@@ -1289,6 +1328,7 @@ def mesh_walk(label, eng, index, targets, kernels, host, native, path,
                              f"{len(eng.shards)} shards x {len(depths)} "
                              "depths")
     n_rows = walk_rows_equal(f"mesh {label}", blocks, native)
+    bound_ms = mesh_bound_ms(eng, host, rec.batches, depths, approximate)
     twall, _, dev = profiled(lambda: walk(eng))
     busy_ms, _ = _device_busy(dev)
     idle = (f"{1 - busy_ms / 1e3 / twall:.6f}" if dev
@@ -1300,6 +1340,7 @@ def mesh_walk(label, eng, index, targets, kernels, host, native, path,
         f"seeds_per_s={len(targets) / wall:.2f} "
         f"in_engine_s={rec.engine_s:.3f} traced_wall_s={twall:.3f} "
         f"device_busy_ms={busy_ms:.6f} device_idle_share={idle} "
+        f"k8_bound_ms={bound_ms:.6f} "
         "depths(queries,ranges,hits,gather_s,merge_s)="
         + json.dumps([[d["queries"], d["ranges"], d["hits"],
                        round(d["gather_s"], 6), round(d["merge_s"], 6)]

@@ -63,75 +63,143 @@ class TracepointArena:
             [np.zeros(1, np.int64), np.cumsum(n_bound)]
         )[:-1]
         total = int(n_bound.sum()) if n else 0
-
-        # Grid coordinates for every boundary of every record.
-        rec_of = np.repeat(np.arange(n, dtype=np.int64), n_bound)
-        local_i = np.arange(total, dtype=np.int64) - seg_off[rec_of]
-        g = t_start[rec_of] + local_i * spacing
-        g = np.minimum(g, t_end[rec_of])
-
-        # Locate the run containing each boundary: j = the last run of the
-        # record with cum_t <= g, one search a record (cum_t ascends within
-        # a record's runs; impg_tpu searches every boundary at once in
-        # log2(n_runs) passes, with the same result).
-        op_off = records.op_off[rec_of]
-        lo = np.zeros(total, np.int64)
-        bounds = zip(records.op_off.tolist(), records.op_cnt.tolist(),
-                     seg_off.tolist(), n_bound.tolist())
-        for a, c, b, nb in bounds:
-            lo[b:b + nb] = np.searchsorted(arena.cum_t[a:a + c],
-                                           g[b:b + nb], side="right")
-        j = np.clip(lo - 1, 0, None)
-        jg = np.clip(op_off + j, 0, max(arena.runs.size - 1, 0))
-
-        runs_j = arena.runs[jg]
-        kind = (runs_j >> np.uint32(29)).astype(np.int64)
-        strand = records.strand[rec_of].astype(np.int64)
-        direction = np.where(strand == 0, 1, -1)
-
-        frac = g - arena.cum_t[jg].astype(np.int64)
-        consumes_q = kind != cigar.OP_D
-        consumes_t = kind != cigar.OP_I
-        is_x = kind == cigar.OP_X
-        is_d = kind == cigar.OP_D
-        # For runs not consuming target, frac must be 0 (boundary at run start).
-        frac = np.where(consumes_t, frac, 0)
-
-        q_at = arena.cum_q[jg].astype(np.int64) + np.where(
-            consumes_t & consumes_q, frac * direction, 0
-        )
-        mm_at = arena.cum_mm[jg].astype(np.int64) + np.where(is_x, frac, 0)
-        ibp_at = arena.cum_ibp[jg].astype(np.int64)
-        dbp_at = arena.cum_dbp[jg].astype(np.int64) + np.where(is_d, frac, 0)
-
-        pre_diffs = mm_at + ibp_at + dbp_at
-
-        # Per-segment aligned bp = min(|dq|, dt); prefix over segments,
-        # stored at boundaries (pre_aligned[0] = 0).
-        pre_aligned = np.zeros(total, np.int64)
-        if total:
-            dq = np.abs(np.diff(q_at))
-            dt = np.diff(g)
-            seg_aligned = np.minimum(dq, dt)
-            # Boundary starts of each record reset the prefix.
-            is_start = np.zeros(total, bool)
-            is_start[seg_off] = True
-            acc = np.cumsum(np.concatenate([[0], seg_aligned]))
-            base = np.repeat(acc[seg_off], n_bound)
-            pre_aligned = acc - base
-            # Cross-record contamination: diff() spans record boundaries; the
-            # boundary-start positions zero out via base subtraction, and the
-            # spurious cross-record segment lands at each record's boundary 0
-            # where it is never read as a segment.
-
+        q_bound = np.empty(total, np.int32)
+        pre_diffs = np.empty(total, np.int64)
+        pre_aligned = np.empty(total, np.int64)
+        # Blocks of records, so that the temporaries scale with a block's
+        # runs and boundaries, not the index's (an index past 2^31 runs
+        # holds tens of GB of arena beside them).
+        for r0 in range(0, n, BUILD_BLOCK):
+            r1 = min(r0 + BUILD_BLOCK, n)
+            b0 = int(seg_off[r0])
+            b1 = int(seg_off[r1]) if r1 < n else total
+            q_bound[b0:b1], pre_diffs[b0:b1], pre_aligned[b0:b1] = (
+                _build_block(records, arena, spacing, r0, r1,
+                             seg_off[r0:r1] - b0, n_bound[r0:r1]))
         return cls(
             spacing=spacing,
             seg_off=seg_off,
             n_seg=n_seg.astype(np.int32),
-            q_bound=q_at.astype(np.int32),
+            q_bound=q_bound,
             pre_diffs=pre_diffs,
             pre_aligned=pre_aligned,
         )
+
+
+# Records a block of `TracepointArena.build`: about 17M runs and 9M
+# boundaries at the yeast-fitted shape (~517 runs a record).
+BUILD_BLOCK = 1 << 15
+_STAT_OPS = (cigar.OP_X, cigar.OP_I, cigar.OP_D)  # cum_mm, cum_ibp, cum_dbp
+
+
+def _spans(start: np.ndarray, count: np.ndarray):
+    """(loc, idx): the ranges [start, start + count) laid end to end, range
+    i at idx[loc[i]:loc[i + 1]] (int64, the repeat/arange trick)."""
+    loc = np.zeros(count.size + 1, np.int64)
+    np.cumsum(count, out=loc[1:])
+    idx = np.arange(int(loc[-1]), dtype=np.int64)
+    idx += np.repeat(start - loc[:-1], count)
+    return loc, idx
+
+
+def _stats_at(arena: CigarArena, jg: np.ndarray, loc_off: np.ndarray,
+              n_bound: np.ndarray) -> list:
+    """[cum_mm, cum_ibp, cum_dbp] (int64) at arena runs `jg`, the runs read
+    at the boundaries of a block's records (record i's at
+    jg[loc_off[i]:][:n_bound[i]], ascending), as the arena's lazy
+    statistics hold them without building them: each is a sum from the
+    start of its run's `seg_offsets` segment.  A record's runs are summed
+    from the start of the segment that holds the first run it reads: its
+    own first run, or for a record with no runs, which reads the run at
+    its offset clipped to the arena, that run's segment start.  The
+    segments are the records' own (`ImpgIndex.derive_seg_offsets`), so
+    none starts inside the runs a record reads."""
+    seg = arena.seg_offsets
+    lo = jg[loc_off]
+    a = seg[np.searchsorted(seg, lo, side="right") - 1]
+    loc, gather = _spans(a, jg[loc_off + n_bound - 1] + 1 - a)
+    rec_b = np.repeat(np.arange(n_bound.size, dtype=np.int64), n_bound)
+    pos = loc[rec_b] + jg - a[rec_b]
+    base = loc[rec_b]
+    runs = arena.runs[gather]
+    lens = cigar.run_len(runs).astype(np.int64)
+    ops = cigar.run_op(runs)
+    out = []
+    for op in _STAT_OPS:
+        c = np.zeros(gather.size + 1, np.int64)
+        np.cumsum(np.where(ops == op, lens, 0), out=c[1:])
+        # int32, as arena._build_stats stores a prefix.
+        out.append((c[pos] - c[base]).astype(np.int32).astype(np.int64))
+    return out
+
+
+def _build_block(records, arena, spacing, r0, r1, loc_off, n_bound):
+    """(q_bound, pre_diffs, pre_aligned) of records [r0, r1), whose
+    boundaries start at `loc_off` within the block."""
+    m = r1 - r0
+    t_start = records.t_start[r0:r1].astype(np.int64)
+    t_end = records.t_end[r0:r1].astype(np.int64)
+    # Grid coordinates for every boundary of every record.
+    rec_of = np.repeat(np.arange(m, dtype=np.int64), n_bound)
+    local_i = np.arange(rec_of.size, dtype=np.int64) - loc_off[rec_of]
+    g = np.minimum(t_start[rec_of] + local_i * spacing, t_end[rec_of])
+
+    # Locate the run containing each boundary: j = the last run of the
+    # record with cum_t <= g.  cum_t ascends within a record's runs, so one
+    # search over (record << 32) + cum_t keys, biased to be non-negative,
+    # over the block's runs laid end to end, finds every boundary's run at
+    # once (impg_tpu searches each record's runs in log2(n_runs) passes,
+    # with the same result).
+    cnt = records.op_cnt[r0:r1].astype(np.int64)
+    op_off = records.op_off[r0:r1].astype(np.int64)
+    run_loc, gather = _spans(op_off, cnt)
+    bias = np.int64(2**31)
+    run_rec = np.repeat(np.arange(m, dtype=np.int64), cnt)
+    keys = (run_rec << 32) + (arena.cum_t[gather].astype(np.int64) + bias)
+    lo = np.searchsorted(keys, (rec_of << 32) + (g + bias), side="right")
+    j = np.clip(lo - run_loc[rec_of] - 1, 0, None)
+    jg = np.clip(op_off[rec_of] + j, 0, max(arena.runs.size - 1, 0))
+
+    runs_j = arena.runs[jg]
+    kind = (runs_j >> np.uint32(29)).astype(np.int64)
+    strand = records.strand[r0:r1][rec_of].astype(np.int64)
+    direction = np.where(strand == 0, 1, -1)
+
+    frac = g - arena.cum_t[jg].astype(np.int64)
+    consumes_q = kind != cigar.OP_D
+    consumes_t = kind != cigar.OP_I
+    is_x = kind == cigar.OP_X
+    is_d = kind == cigar.OP_D
+    # For runs not consuming target, frac must be 0 (boundary at run start).
+    frac = np.where(consumes_t, frac, 0)
+
+    q_at = arena.cum_q[jg].astype(np.int64) + np.where(
+        consumes_t & consumes_q, frac * direction, 0
+    )
+    # The statistics prefixes are read where the arena holds them, and else
+    # summed here from the runs rather than built (24 B a run, 62 GB past
+    # 2^31 runs).  Reading them is the cheaper: chip_smoke.py's tracepoint
+    # build, after walks that built them, took 29.0 s reading and 44.7 s
+    # summing on an H100 host.
+    if arena.seg_offsets is None or arena.stats_materialized:
+        mm, ibp, dbp = (getattr(arena, k)[jg].astype(np.int64)
+                        for k in ("cum_mm", "cum_ibp", "cum_dbp"))
+    else:
+        mm, ibp, dbp = _stats_at(arena, jg, loc_off, n_bound)
+    pre_diffs = (mm + np.where(is_x, frac, 0)) + ibp + (
+        dbp + np.where(is_d, frac, 0))
+
+    # Per-segment aligned bp = min(|dq|, dt); prefix over segments,
+    # stored at boundaries (pre_aligned[0] = 0).  diff() spans record
+    # boundaries; the subtraction of each record's base zeroes those
+    # spurious segments at the record's boundary 0, where it is never read
+    # as a segment.
+    pre_aligned = np.zeros(rec_of.size, np.int64)
+    if rec_of.size:
+        seg_aligned = np.minimum(np.abs(np.diff(q_at)), np.diff(g))
+        acc = np.cumsum(np.concatenate([[0], seg_aligned]))
+        pre_aligned = acc - np.repeat(acc[loc_off], n_bound)
+    return q_at.astype(np.int32), pre_diffs, pre_aligned
 
 
 class ApproxResult(NamedTuple):

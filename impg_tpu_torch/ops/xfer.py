@@ -53,15 +53,95 @@ def upload_i32(a: np.ndarray, device) -> torch.Tensor:
     return upload(as_i32(a), device)
 
 
-def upload_i32_columns(cols: list, device) -> torch.Tensor:
-    """int32 [n, len(cols)] tensor on `device` whose column i holds cols[i]
-    (each as `as_i32`).  Each column goes up as its own contiguous array
-    (`upload_i32`) and is written into its strided column on the device, so
-    the host does no interleaving and the device holds one column's copy
-    at a time on top of the result."""
+# Values a pinned staging buffer of `upload_i32_rows` holds (64 MiB of int32).
+STAGE_ELEMS = 1 << 24
+
+
+def _n_rows(rows) -> int:
+    return rows.stop - rows.start if isinstance(rows, slice) else len(rows)
+
+
+def _take(col: np.ndarray, rows, out: np.ndarray, wrap: bool) -> None:
+    """out[:] = col[rows] as int32: `as_i32`'s values, or wrapped when
+    `wrap`.  int32 and uint32 columns go straight into `out`, with no copy
+    between (`rows` index arrays are in range by construction)."""
+    if col.dtype == np.uint32:
+        col = col.view(np.int32)
+    if col.dtype == np.int32:
+        if isinstance(rows, slice):
+            out[...] = col[rows]
+        else:
+            np.take(col, rows, out=out, mode="clip")
+        return
+    v = col[rows]
+    out[...] = v.astype(np.int32) if wrap else as_i32(v)
+
+
+def upload_i32_rows(groups: list, n: int, blocks, device,
+                    wrap: bool = False) -> list:
+    """int32 [n, len(g)] tensors on `device`, one for each group `g` of host
+    columns, column i of a group's tensor taking g[i]'s rows as `blocks`
+    sends them: (r0, rows) pairs, `rows` a slice or an int64 index array of
+    the columns' rows that go to rows [r0, r0 + len(rows)) of every tensor.
+    Values are taken as `as_i32` takes them, or wrapped to int32 when
+    `wrap` (int64 prefixes that are sums within one record, which the JAX
+    upload casts so).
+
+    On CUDA the host takes a chunk of rows of every column, one column
+    after the other, straight into one of two pinned staging buffers of
+    STAGE_ELEMS values; the chunk goes up in one copy while the host fills
+    the other buffer, and the device transposes it into the tensors' rows.
+    So the host makes one pass over the values and never holds a copy of
+    the whole: the arena columns of an index past 2^31 runs are tens of
+    GB, and so are a page's and the tracepoints'."""
     dev = torch.device(device)
-    out = torch.empty((len(cols[0]), len(cols)), dtype=torch.int32,
-                      device=dev)
-    for i, c in enumerate(cols):
-        out[:, i].copy_(upload_i32(np.asarray(c), dev))
-    return out
+    outs = [torch.empty((n, len(g)), dtype=torch.int32, device=dev)
+            for g in groups]
+    cols = [np.asarray(c) for g in groups for c in g]
+    if dev.type != "cuda":
+        dst = [(o.numpy(), i) for o, g in zip(outs, groups)
+               for i in range(len(g))]
+        for r0, rows in blocks:
+            r1 = r0 + _n_rows(rows)
+            for col, (o, i) in zip(cols, dst):
+                _take(col, rows, o[r0:r1, i], wrap)
+        return outs
+    k = len(cols)
+    step = max(STAGE_ELEMS // k, 1)
+    stage = [None, None]
+    done = [None, None]
+    turn = 0
+    for r0, rows in blocks:
+        m = _n_rows(rows)
+        for c0 in range(0, m, step):
+            c1 = min(c0 + step, m)
+            sub = (slice(rows.start + c0, rows.start + c1)
+                   if isinstance(rows, slice) else rows[c0:c1])
+            b = turn % 2
+            turn += 1
+            if stage[b] is None:
+                stage[b] = torch.empty(STAGE_ELEMS, dtype=torch.int32,
+                                       pin_memory=True)
+            if done[b] is not None:
+                done[b].synchronize()
+            buf = stage[b][:k * (c1 - c0)].view(k, c1 - c0)
+            host = buf.numpy()
+            for i, col in enumerate(cols):
+                _take(col, sub, host[i], wrap)
+            up = buf.to(dev, non_blocking=True)
+            done[b] = torch.cuda.Event()
+            done[b].record(torch.cuda.current_stream(dev))
+            i0 = 0
+            for o, g in zip(outs, groups):
+                o[r0 + c0:r0 + c1].copy_(up[i0:i0 + len(g)].t())
+                i0 += len(g)
+    return outs
+
+
+def upload_i32_columns(cols: list, device, wrap: bool = False) -> torch.Tensor:
+    """int32 [n, len(cols)] tensor on `device` whose column i holds cols[i],
+    by `upload_i32_rows`: the host does no interleaving, and it and the
+    device hold no more than a staging buffer's worth on top of the
+    result."""
+    n = len(cols[0])
+    return upload_i32_rows([cols], n, [(0, slice(0, n))], device, wrap)[0]

@@ -60,6 +60,7 @@ from impg_tpu_torch.ops.xfer import (
     check_device,
     upload_i32,
     upload_i32_columns,
+    upload_i32_rows,
 )
 
 # Output fields of a query step, in the JAX engine's row order
@@ -205,7 +206,12 @@ class TorchDeviceIndex:
         at the default spacing when the index has none (the rule of the JAX
         DeviceIndex, which keeps this engine, the JAX one and the native one
         on one spacing), and leaves the whole CIGAR arena for
-        `upload_arena`: approximate walks never read it."""
+        `upload_arena`: approximate walks never read it.  Nor do they read
+        `op_off`, which only K-C does: over an arena of 2^31 runs or more,
+        whose offsets do not fit int32 and whose upload `upload_arena`
+        refuses, a tracepoint index holds an empty `op_off` and still
+        serves approximate walks (impg_tpu's DeviceIndex refuses the
+        index whole)."""
         r = index.records
         arrays = dict(**{k: getattr(r, k) for k in cls.RECORD_KEYS},
                       tgt_offsets=index.tgt_offsets)
@@ -215,6 +221,8 @@ class TorchDeviceIndex:
             tp = {k: getattr(arena, k) for k in cls.TP_KEYS[:5]}
             tp.update(q_start=r.q_start, q_end=r.q_end)
             tp_spacing = arena.spacing
+            if index.arena.n_ops >= 2**31:
+                arrays["op_off"] = np.zeros(0, np.int32)
         else:
             arrays.update(index.arena.projection_kwargs(with_stats=False))
         return cls.from_arrays(arrays, device, tp, tp_spacing)
@@ -236,7 +244,7 @@ class TorchDeviceIndex:
         return sum(t.numel() * t.element_size() for t in ts)
 
 
-def arena_tensors(arrays: dict, keys, device) -> dict:
+def arena_tensors(arrays: dict, keys, device, rows=None) -> dict:
     """The arena arrays named in `keys` (whole groups of them) on `device`,
     in the layout K-C reads: `cum_t`, which the run searches probe, as an
     array of its own; the RUN_KEYS (runs, cum_q, irun_before, irun_after)
@@ -244,20 +252,32 @@ def arena_tensors(arrays: dict, keys, device) -> dict:
     those of one [n_runs, 6] tensor.  Interleaved, the values K-C needs at a
     boundary run come in one 16-byte load (and the six stats in three
     8-byte ones) where separate arrays cost a 32-byte sector each; the
-    plain twin reads the column views as arrays."""
-    out = {}
+    plain twin reads the column views as arrays.
+
+    `rows` = (n, blocks) takes n rows of each array instead of all of
+    them: `blocks` yields (r0, idx), the arrays' rows `idx` going to rows
+    [r0, r0 + len(idx)) (a page's runs, gathered a block at a time).  All
+    groups go up in one pass over the rows (`upload_i32_rows`)."""
+    groups = []
     for group in (("cum_t",), TorchDeviceIndex.RUN_KEYS,
                   TorchDeviceIndex.STATS_KEYS):
         present = [k for k in group if k in keys]
-        if not present:
-            continue
-        if len(present) != len(group):
+        if len(present) not in (0, len(group)):
             raise ValueError(f"arena arrays {group} upload together")
-        if len(group) == 1:
-            out[group[0]] = upload_i32(np.asarray(arrays[group[0]]), device)
-            continue
-        t = upload_i32_columns([arrays[k] for k in group], device)
-        out.update({k: t[:, i] for i, k in enumerate(group)})
+        if present:
+            groups.append(group)
+    if not groups:
+        return {}
+    if rows is None:
+        n = len(arrays[groups[0][0]])
+        rows = n, [(0, slice(0, n))]
+    n, blocks = rows
+    ts = upload_i32_rows([[arrays[k] for k in g] for g in groups], n,
+                         blocks, device)
+    out = {}
+    for g, t in zip(groups, ts):
+        out.update({g[0]: t.view(n)} if len(g) == 1 else
+                   {k: t[:, i] for i, k in enumerate(g)})
     return out
 
 
@@ -270,14 +290,12 @@ def tracepoint_tensors(tp: dict, device) -> dict:
     a segment's two ends in two to four 32-byte sectors where seven arrays
     cost about ten; no separate copy stays resident, and the plain twin
     reads the column views as arrays.  int64 prefixes are cast to int32 as
-    the JAX upload does (they are sums within one record)."""
+    the JAX upload does (they are sums within one record), a staging
+    buffer's worth at a time."""
     out = {}
     for group in (TorchDeviceIndex.TP_RECORD_KEYS,
                   TorchDeviceIndex.TP_BOUND_KEYS):
-        t = upload_i32_columns(
-            [np.asarray(tp[k]).astype(np.int32, copy=False) for k in group],
-            device,
-        )
+        t = upload_i32_columns([tp[k] for k in group], device, wrap=True)
         out.update({k: t[:, i] for i, k in enumerate(group)})
     return {k: out[k] for k in TorchDeviceIndex.TP_KEYS}
 

@@ -9,7 +9,11 @@ resident engine's kernels:
     engine's greedy plan, so the page edges are the same for the same
     budget.  A page is its gathered arena slice (5 arrays, 11 with stats)
     plus page-relative int32 `op_off`; the host gather runs in int64, so the
-    global arena may pass 2^31 runs.  Pages are uploaded on first use and
+    global arena may pass 2^31 runs.  It runs a block of PAGE_BLOCK records
+    at a time into pinned staging (ops/xfer.py:upload_i32_rows), so the host holds
+    a block's temporaries, not a page's (a quarter of the budget: about 15
+    GB at an 80 GB card's default); a plan with a page of 2^31 runs or more
+    is refused (`check_page_runs`).  Pages are uploaded on first use and
     evicted least recently used, holding `len(pages) * page_bytes_each <=
     budget`.  That is the JAX engine's accounting, kept so that pages and
     evictions match it: `page_bytes_each` is its padded page size, which
@@ -69,6 +73,9 @@ PAGE_ARRAYS_LEAN = 5  # runs, cum_t, cum_q, irun_before, irun_after
 PAGE_ARRAYS_STATS = 11
 REC_COLS = 6  # t_start, t_end, strand, query_id, op_off, op_cnt
 DEFAULT_BUDGET = 12 << 30  # the JAX engine's default
+# Records a block of a page's gather (`_build_page`): about 17M runs at the
+# yeast-fitted shape, so the host's temporaries stay far below a page.
+PAGE_BLOCK = 1 << 15
 # Per-record columns a page takes as views of the resident ones.
 _PAGE_VIEWS = ("target_id", "t_start", "t_end", "cummax_te", "strand",
                "query_id", "op_cnt")
@@ -113,6 +120,25 @@ def plan_pages(op_cnt: np.ndarray, budget: int, with_stats: bool):
     return edges, p_runs * bytes_per_run + p_rec * bytes_per_rec
 
 
+def check_page_runs(op_cnt: np.ndarray, edges: np.ndarray) -> None:
+    """Refuse a plan with a page of 2^31 runs or more: a page's `op_off`
+    is page-relative int32, as the resident index's is global int32
+    (query/device.py:_check_arena_size).  A page holds a quarter of the
+    budget, so this takes a budget past about 172 GB (2^31 runs x 20 B x
+    4), or one record of 2^31 runs; the JAX plan makes the same pages and
+    its int32 offsets wrap there."""
+    run_cum = np.zeros(np.asarray(op_cnt).size + 1, np.int64)
+    np.cumsum(op_cnt, out=run_cum[1:])
+    runs = np.diff(run_cum[edges])
+    big = np.flatnonzero(runs >= 2**31)
+    if big.size:
+        p = int(big[0])
+        raise ValueError(
+            f"page {p} of {runs.size} (records {int(edges[p])}-"
+            f"{int(edges[p + 1])}) has {int(runs[p])} runs, past the int32 "
+            "page offsets (2^31 - 1); lower the budget")
+
+
 class TorchPagedEngine:
     """TorchDeviceEngine's stream contract for indexes beyond the card.
 
@@ -136,6 +162,7 @@ class TorchPagedEngine:
             r.op_cnt, self.budget, with_stats
         )
         self.n_pages = self.page_edges.size - 1
+        check_page_runs(r.op_cnt, self.page_edges)
         tree = np.diff(index.tgt_offsets)
         up = lambda a: upload_i32(np.asarray(a), self.device)  # noqa: E731
         # Record columns over the whole index; `op_off` and the arena are
@@ -166,22 +193,27 @@ class TorchPagedEngine:
     def _build_page(self, p: int) -> TorchDeviceIndex:
         t0 = time.perf_counter()
         r = self.index.records
-        a = self.index.arena
         lo, hi = int(self.page_edges[p]), int(self.page_edges[p + 1])
         cnt = r.op_cnt[lo:hi].astype(np.int64)
         page_off = np.zeros(cnt.size + 1, np.int64)
         np.cumsum(cnt, out=page_off[1:])
-        # The page's arena slice, gathered in int64 (repeat/arange trick).
-        gather = (
-            np.arange(int(page_off[-1]), dtype=np.int64)
-            - np.repeat(page_off[:-1], cnt)
-            + np.repeat(r.op_off[lo:hi].astype(np.int64), cnt)
-        )
+        off = r.op_off[lo:hi].astype(np.int64)
+
+        def blocks():
+            """The page's arena slice in record blocks: (first run in the
+            page, int64 arena rows), by the repeat/arange trick."""
+            for b0 in range(0, hi - lo, PAGE_BLOCK):
+                b1 = min(b0 + PAGE_BLOCK, hi - lo)
+                gather = np.arange(page_off[b0], page_off[b1], dtype=np.int64)
+                gather += np.repeat(off[b0:b1] - page_off[b0:b1], cnt[b0:b1])
+                yield int(page_off[b0]), gather
+
         keys = TorchDeviceIndex.PROJECTION_CORE + (
             TorchDeviceIndex.STATS_KEYS if self.with_stats else ()
         )
-        arena = arena_tensors({k: getattr(a, k)[gather] for k in keys}, keys,
-                              self.device)
+        a = self.index.arena
+        arena = arena_tensors({k: getattr(a, k) for k in keys}, keys,
+                              self.device, rows=(int(page_off[-1]), blocks()))
         op_off = upload_i32(page_off[:-1], self.device)
         self.h2d_bytes += sum(t.numel() * 4 for t in (op_off, *arena.values()))
         ri = self.rindex

@@ -11,10 +11,15 @@ haplotypes, for the syng read-to-genotype path.  `variation_graph` is the
 `sort` path's counterpart: the GFA of such a locus as a variation graph.
 `panel_alignments` is the sequence layer's: such a panel's sequences with
 the PAF of its tree, exact CIGARs, for `query -o fasta|gfa|...`,
-`partition -o fasta|gfa` and `similarity`.
+`partition -o fasta|gfa` and `similarity`.  `shift_arena` moves an index's
+arena past 2^31 runs into sparse files, for checks of the offsets past the
+int32 ceiling at the cost of a small index.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import os
 
 import numpy as np
 
@@ -151,6 +156,34 @@ def realistic_directed_index(
     for i in range(n_seqs):
         seq_index.get_or_insert_id(f"g{i}#1#chr1", seq_len)
     return ImpgIndex._finalize(seq_index, records, arena, [])
+
+
+def shift_arena(index: ImpgIndex, folder: str,
+                shift: int = 2**31) -> ImpgIndex:
+    """`index` with its arena moved `shift` runs up.  Each eager arena
+    column becomes a file-backed np.memmap in `folder` of shift + n_ops
+    values of the column's own dtype, the runs at its tail after a sparse
+    hole, and every op_off moves up by `shift`: walks, counts and
+    tracepoints are `index`'s, while the arena's size and offsets pass
+    2^31 at the disk cost of the runs alone.  The lazy statistics stay
+    unbuilt (building them would read the hole); the segment boundaries
+    gain the hole as a first segment."""
+    a = index.arena
+    cols = {}
+    for k in CigarArena.EAGER_FIELDS:
+        src = getattr(a, k)
+        col = np.memmap(os.path.join(folder, f"{k}.bin"), dtype=src.dtype,
+                        mode="w+", shape=(shift + src.size,))
+        col[shift:] = src
+        cols[k] = col
+    seg = a.seg_offsets
+    arena = CigarArena(**cols, seg_offsets=None if seg is None else
+                       np.concatenate([np.zeros(1, np.int64), seg + shift]))
+    records = dataclasses.replace(index.records,
+                                  op_off=index.records.op_off + shift)
+    return ImpgIndex(seq_index=index.seq_index, records=records, arena=arena,
+                     tgt_offsets=index.tgt_offsets,
+                     alignment_files=list(index.alignment_files))
 
 
 # ---- syng read-to-genotype data --------------------------------------------

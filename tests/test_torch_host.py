@@ -194,12 +194,47 @@ def test_tracepoint_build_equal_at_scale_shape(spacing):
     index = synth.realistic_directed_index(seed=4, n_seqs=40,
                                            seq_len=20_000, n_aln=120)
     index.records.op_cnt[3] = 0
-    rt = jax_tp.TracepointArena.build(index.records, index.arena, spacing)
+    # The port first: impg_tpu's build materializes the lazy statistics,
+    # which the port's sums from the runs.
     gt = port_tp.TracepointArena.build(index.records, index.arena, spacing)
+    assert not index.arena.stats_materialized
+    rt = jax_tp.TracepointArena.build(index.records, index.arena, spacing)
     assert set(index.records.strand.tolist()) == {0, 1}
     for f in rt.FIELDS:
         g, r = getattr(gt, f), getattr(rt, f)
         assert g.dtype == r.dtype and np.array_equal(g, r), f
+
+
+@pytest.mark.parametrize("spacing", [1, 100])
+@pytest.mark.parametrize("stats", ["lazy", "materialized"])
+@pytest.mark.parametrize("case", ["blocks", "no_runs"])
+def test_tracepoint_build_blocks_and_segments(monkeypatch, spacing, case,
+                                              stats):
+    """The port's build in blocks of 3 records equals impg_tpu's build over
+    the materialized statistics, whether the port sums them from the runs
+    of each record's segment (`lazy`: they stay unbuilt) or reads them;
+    `no_runs` gives records with no runs at the first and last place of
+    blocks, one of them at the arena's end (its offset clipped to the last
+    run, in the middle of another record's segment)."""
+    from impg_tpu_torch import synth
+
+    monkeypatch.setattr(port_tp, "BUILD_BLOCK", 3)
+    index = synth.realistic_directed_index(seed=5, n_seqs=30,
+                                           seq_len=20_000, n_aln=40)
+    r, arena = index.records, index.arena
+    if case == "no_runs":
+        for i in (0, 2, 3, 5, 9, len(r) - 1):
+            r.op_cnt[i] = 0
+        r.op_off[len(r) - 1] = arena.n_ops
+    assert len(r) > 3 * 4 and not arena.stats_materialized
+    if stats == "materialized":
+        arena.cum_mm  # noqa: B018 -- builds the lazy statistics
+    gt = port_tp.TracepointArena.build(r, arena, spacing)
+    assert arena.stats_materialized == (stats == "materialized")
+    rt = jax_tp.TracepointArena.build(r, arena, spacing)
+    for f in rt.FIELDS:
+        g, want = getattr(gt, f), getattr(rt, f)
+        assert g.dtype == want.dtype and np.array_equal(g, want), f
 
 
 @pytest.mark.parametrize("spacing", [100, 37])

@@ -24,8 +24,11 @@ syng tools (`read-index`, `infer` with `--gaf`, `--read-index` and
 (`align` and its job list, `graph` on the poa and pggb engines, with a
 given PAF and partitioned, `normalize`, `normalize-self-loops`, `smooth`,
 `crush`, `render-graph`, `lace`, `agz create|list`, a `render` bundle over
-the archive, `project`, `gfa2vcf` and `graph-report`)."""
+the archive, `project`, `gfa2vcf` and `graph-report`).  chip_scale.py's
+CPU rehearsal runs the same way, every phase of the headline tier's script
+over a small index moved past 2^31 runs."""
 
+import json
 import os
 import random
 import subprocess
@@ -339,3 +342,63 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     gt_rows = [l for l in r.stdout.splitlines() if l.startswith("sample\t")]
     assert len(gt_rows) >= 20, r.stdout  # two engines, top 10 each
     assert sum(l.startswith("#PCA\t") for l in r.stdout.splitlines()) >= 6
+
+
+_SCALE_SCRIPT = r"""
+import runpy
+import sys
+tried = []
+BLOCKED = ("jax", "impg_tpu")
+
+
+def blocked(name):
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+
+class NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if blocked(name):
+            tried.append(name)
+            raise ImportError(f"blocked: {name}")
+
+
+sys.meta_path.insert(0, NoJax())
+sys.path.insert(0, sys.argv[1])
+script = sys.argv[1] + "/chip_scale.py"
+sys.argv = [script, "--cpu", "--n-aln", "400", "--part", "all"]
+try:
+    runpy.run_path(script, run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+loaded = [m for m, mod in sys.modules.items() if blocked(m) and mod is not None]
+assert not loaded, loaded
+assert not tried, tried
+print("NOJAX_OK")
+"""
+
+
+def test_chip_scale_runs_without_jax(tmp_path):
+    """chip_scale.py's CPU rehearsal at 400 alignments, its arena moved
+    past 2^31, with `jax` and `impg_tpu` refused: its phases import
+    neither, every phase's gate passes on the CPU twins (rows equal the
+    native engine's in order at both budgets and approximately, counts
+    equal the stab, the resident index and the mesh refuse) and the last
+    line says so."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", _SCALE_SCRIPT, REPO],
+                       capture_output=True, text=True, cwd=str(tmp_path),
+                       env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = r.stdout.strip().splitlines()
+    assert lines[-1] == "NOJAX_OK"
+    last = json.loads(lines[-2])
+    assert last["ok"] is True and last["device"]["platform"] == "cpu"
+    assert last["setup"]["shifted_runs"] >= 2**31
+    assert set(last["route"]["refusals"]) == {"resident", "mesh"}
+    ex = last["exact"]
+    for w in ("default", "evicting"):
+        assert ex[w]["rows_equal_native_in_order"] and ex[w]["rows"] > 1000
+    assert ex["evicting"]["evictions"] > 0 and ex["default"]["pages"] == 1
+    assert last["stats"]["counts_equal_stab"]
+    assert last["approx"]["rows_equal_native_in_order"]
+    assert "reduced: arena of" in r.stdout
