@@ -87,6 +87,7 @@ import sys
 
 import torch
 
+from impg_tpu_torch import tracing
 from impg_tpu_torch.io import bed as bed_mod
 
 # Sequence-backed region formats of `query` (`gfa:<pipeline>` is gfa).
@@ -3343,6 +3344,12 @@ def main(argv=None, device=None) -> int:
         # accounting (stderr line per he_run; the reference's -v 2
         # Instant-logging role, CommonOpts main.rs:2029).
         os.environ.setdefault("IMPG_HE_PROF", "1")
+    timed = getattr(args, "verbosity", 0) >= 1
+    if timed:
+        # Info level: the program's spans and counters (tracing.py), one
+        # log line each at exit.
+        tracing.reset()
+        spans_were_on = tracing.enable()
     dev = torch.device("cuda", 0) if device is None else torch.device(device)
     grouped = torch.distributed.is_available() and (
         torch.distributed.is_initialized())
@@ -3356,6 +3363,11 @@ def main(argv=None, device=None) -> int:
     except BrokenPipeError:
         return 0
     finally:
+        if timed:
+            log = logging.getLogger("impg_tpu_torch.tracing")
+            for line in tracing.report():
+                log.info(line)
+            tracing.enable(spans_were_on)
         # A group that this run joined (--compute-engine mesh with
         # IMPG_COORDINATOR) ends with it.
         if not grouped and torch.distributed.is_available() and (

@@ -35,6 +35,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from impg_tpu_torch import tracing
+
 # impg_tpu's `auto` threshold on batch * epochs.
 AUTO_DEVICE_SAMPLES = 500_000_000
 BACKENDS = ("auto", "numpy", "device", "jax")
@@ -108,8 +110,9 @@ def _sgd_order_core(
     if n <= 1 or n_steps < 2:
         return np.arange(n)
     rng = rng or np.random.default_rng(42)
-    step_node, x, pstart, pend, eta_max, lam = sgd_setup(
-        n, step_node, step_pos, bounds, epochs, eta_max, eta_min)
+    with tracing.span("layout.setup"):
+        step_node, x, pstart, pend, eta_max, lam = sgd_setup(
+            n, step_node, step_pos, bounds, epochs, eta_max, eta_min)
 
     batch = n_steps * batch_per_step
     device = torch.device("cuda", 0) if device is None else device
@@ -120,7 +123,19 @@ def _sgd_order_core(
             x, step_node, step_pos, pstart, pend, epochs, batch,
             float(eta_max), float(lam), device=device,
         )
+        with tracing.span("layout.order"):
+            return order_of(x)
+    with tracing.span("layout.epochs"):
+        _numpy_epochs(x, step_node, step_pos, pstart, pend, epochs, batch,
+                      eta_max, lam, rng)
+    with tracing.span("layout.order"):
         return order_of(x)
+
+
+def _numpy_epochs(x, step_node, step_pos, pstart, pend, epochs, batch,
+                  eta_max, lam, rng) -> None:
+    """impg_tpu's numpy epoch loop, updating x in place."""
+    n_steps = step_node.size
     for t in range(epochs):
         eta = eta_max * np.exp(-lam * t)
         i = rng.integers(0, n_steps, batch)
@@ -153,8 +168,6 @@ def _sgd_order_core(
         np.add.at(cnt, a, 1.0)
         np.add.at(cnt, b, 1.0)
         x -= acc / np.maximum(cnt, 1.0)
-
-    return order_of(x)
 
 
 def sgd_inputs(gc):
@@ -224,11 +237,13 @@ def groom(gfa):
 
 def sgd_order_columns(gc, backend: str = "auto", device=None) -> np.ndarray:
     """Path-SGD segment-row order on the columnar model."""
-    step_node, step_pos, bounds = sgd_inputs(gc)
-    return _sgd_order_core(
-        gc.n_segs, step_node, step_pos, bounds, backend=backend,
-        device=device,
-    )
+    with tracing.span("sort.layout", launches=True):
+        with tracing.span("layout.inputs"):
+            step_node, step_pos, bounds = sgd_inputs(gc)
+        return _sgd_order_core(
+            gc.n_segs, step_node, step_pos, bounds, backend=backend,
+            device=device,
+        )
 
 
 def sort_pipeline(
@@ -238,23 +253,34 @@ def sort_pipeline(
     """Apply the gfasort-style pipeline on the columnar model (native
     tokenizer + spell/topo kernels): Y = path-SGD order, g = groom,
     s = priority topological sort (+ renumber).  Unknown steps error.
-    `device` (default cuda:0) is where a device-backend layout runs."""
+    `device` (default cuda:0) is where a device-backend layout runs.
+    Each stage is a span (tracing.py): sort.parse, sort.layout (its own
+    layout.* spans), sort.reorder, sort.groom, sort.topo, sort.write, all
+    inside sort."""
     from impg_tpu_torch.graph import columnar_ops as co
     from impg_tpu_torch.graph import gfa_columns
 
-    gc = gfa_columns.parse_gfa_columns(gfa_text)
-    if gc.n_segs <= 1:
-        return gfa_text
-    for c in pipeline:
-        if c == "Y":
-            order = sgd_order_columns(gc, backend=sgd_backend, device=device)
-            gc = co.reorder_segments_columns(gc, np.asarray(order, np.int32))
-        elif c == "g":
-            gc = co.groom_columns(gc)
-        elif c == "s":
-            gc = co.topo_priority_columns(gc)
-        else:
-            raise ValueError(
-                f"unsupported sort pipeline step '{c}' (expected Y, g, s)"
-            )
-    return co.write_columns(gc)
+    with tracing.span("sort", launches=True):
+        with tracing.span("sort.parse"):
+            gc = gfa_columns.parse_gfa_columns(gfa_text)
+        if gc.n_segs <= 1:
+            return gfa_text
+        for c in pipeline:
+            if c == "Y":
+                order = sgd_order_columns(gc, backend=sgd_backend,
+                                          device=device)
+                with tracing.span("sort.reorder"):
+                    gc = co.reorder_segments_columns(
+                        gc, np.asarray(order, np.int32))
+            elif c == "g":
+                with tracing.span("sort.groom"):
+                    gc = co.groom_columns(gc)
+            elif c == "s":
+                with tracing.span("sort.topo"):
+                    gc = co.topo_priority_columns(gc)
+            else:
+                raise ValueError(
+                    f"unsupported sort pipeline step '{c}' (expected Y, g, s)"
+                )
+        with tracing.span("sort.write"):
+            return co.write_columns(gc)

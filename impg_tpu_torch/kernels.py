@@ -12,7 +12,7 @@ asynchronously and returns `cudaGetLastError()`, or NO_LAUNCH when its input
 was empty and it launched nothing.  `launch` raises on a CUDA error and adds
 one to the kernel's launch count only when the entry point launched, so the
 counts show that a run went through the kernels (`reset_launch_counts`,
-`launch_counts`).
+`launch_counts`; the counts are tracing.py's counters "launch.<kernel>").
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ import os
 import re
 import shutil
 import subprocess
+
+from impg_tpu_torch import tracing
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -84,17 +86,15 @@ _SIGNATURES = {
     "impg_path_sgd_apply": (_P, _P, _P, _I64, _I32, _P),
 }
 
-_launches = dict.fromkeys(KERNELS, 0)
 _lib = None
 
 
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    tracing.reset_counters("launch.")
 
 
 def launch_counts() -> dict:
-    return dict(_launches)
+    return {name: tracing.counter("launch." + name) for name in KERNELS}
 
 
 def _nvcc() -> str:
@@ -215,7 +215,7 @@ def launch(kernel: str, entry: str, *args) -> bool:
     if err != 0:
         msg = lib.impg_cuda_error_string(err).decode()
         raise RuntimeError(f"{entry}: CUDA error {err}: {msg}")
-    _launches[kernel] += 1
+    tracing.count("launch." + kernel)
     return True
 
 

@@ -33,7 +33,10 @@ step; positions x float32 [n_segs]; the sums of the moves int64 [n_segs]
     into the sums and counts) and one small apply launch
     (`impg_path_sgd_apply`: x -= sum 2^-frac_bits / max(count, 1), sums
     and counts zeroed), both counted under `path_sgd`; on the CPU the plain
-    twin.
+    twin.  Its stages are spans (tracing.py): layout.pack (the host
+    columns and their checks), layout.upload, layout.epochs (the launches'
+    enqueue) and layout.readback (the host's wait on K-I, then the copy
+    back).
   * The twin is kept in parts: `draw_pairs` (the Philox draws and the pair
     mapping, in int64 arithmetic), `pulls` (the move of each pair), and its
     accumulation, `pull_fixed` + `apply_fixed` as the kernel sums, so a test
@@ -56,7 +59,7 @@ import math
 import numpy as np
 import torch
 
-from impg_tpu_torch import kernels
+from impg_tpu_torch import kernels, tracing
 from impg_tpu_torch.ops.xfer import check_device, upload
 
 SEED = 42  # impg_tpu's jrandom.PRNGKey(42) for the device loop
@@ -224,8 +227,8 @@ def epoch_plain(x, steps, epoch: int, batch: int, eta: float, log_n: float,
 # ---- kernel wrappers ---------------------------------------------------------
 
 
-def sgd_steps(step_node, step_pos, pstart, pend, n: int, device) -> torch.Tensor:
-    """The step columns interleaved as int32 [n_steps, 4] on `device`: node,
+def step_columns(step_node, step_pos, pstart, pend, n: int) -> np.ndarray:
+    """The step columns interleaved as int32 [n_steps, 4] on the host: node,
     float32 position bits, path start, path end.  Raises unless every node
     lies in [0, n) and every step's path bounds hold it."""
     step_node = np.asarray(step_node)
@@ -245,7 +248,12 @@ def sgd_steps(step_node, step_pos, pstart, pend, n: int, device) -> torch.Tensor
     cols[:, 1] = np.asarray(step_pos, np.float32).view(np.int32)
     cols[:, 2] = pstart
     cols[:, 3] = pend
-    return upload(cols, device)
+    return cols
+
+
+def sgd_steps(step_node, step_pos, pstart, pend, n: int, device) -> torch.Tensor:
+    """`step_columns` uploaded to `device`."""
+    return upload(step_columns(step_node, step_pos, pstart, pend, n), device)
 
 
 def _check_state(x, steps) -> None:
@@ -331,13 +339,22 @@ def sgd_epochs(x0, step_node, step_pos, pstart, pend, epochs: int,
     dev = check_device(device)
     x0 = np.asarray(x0)
     n_steps = int(np.asarray(step_node).size)
-    steps = sgd_steps(step_node, step_pos, pstart, pend, x0.size, dev)
-    x = upload(x0.astype(np.float32), dev)
-    acc = x.new_zeros(x.shape, dtype=torch.int64)
-    cnt = x.new_zeros(x.shape, dtype=torch.int32)
+    with tracing.span("layout.pack"):
+        cols = step_columns(step_node, step_pos, pstart, pend, x0.size)
+        x32 = x0.astype(np.float32)
+        fixed = fixed_point(batch, move_bound(x0, step_pos))
+    with tracing.span("layout.upload", launches=True):
+        steps = upload(cols, dev)
+        x = upload(x32, dev)
+        acc = x.new_zeros(x.shape, dtype=torch.int64)
+        cnt = x.new_zeros(x.shape, dtype=torch.int32)
     log_n = math.log(n_steps) if n_steps else 0.0
-    fixed = fixed_point(batch, move_bound(x0, step_pos))
-    for t in range(epochs):
-        sgd_epoch(x, steps, acc, cnt, t, batch,
-                  epoch_eta(eta_max, lam, t), log_n, *fixed)
-    return x.cpu().numpy().astype(np.float64)
+    with tracing.span("layout.epochs", launches=True):
+        for t in range(epochs):
+            sgd_epoch(x, steps, acc, cnt, t, batch,
+                      epoch_eta(eta_max, lam, t), log_n, *fixed)
+    # The host waits here for the epochs' kernels, then copies x back.
+    with tracing.span("layout.readback", launches=True):
+        out = x.cpu()
+        tracing.count("layout.d2h_bytes", out.numel() * out.element_size())
+        return out.numpy().astype(np.float64)

@@ -2,13 +2,16 @@
 
 Counterpart of impg_tpu/ops/xfer.py.  A CUDA host copies straight from
 pinned memory over PCIe, so the JAX module's relay chunking and compile cache
-have no counterpart here.
+have no counterpart here.  The uploads add the bytes they hand to the
+device to tracing.py's counter "xfer.h2d_bytes" (a clone on the CPU).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from impg_tpu_torch import tracing
 
 _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
 
@@ -43,6 +46,7 @@ def upload(a: np.ndarray, device) -> torch.Tensor:
         a = a.copy()
     t = torch.from_numpy(a)
     dev = torch.device(device)
+    tracing.count("xfer.h2d_bytes", a.nbytes)
     if dev.type == "cuda":
         return t.pin_memory().to(dev, non_blocking=True)
     return t.clone()
@@ -103,6 +107,7 @@ def upload_i32_rows(groups: list, n: int, blocks, device,
                for i in range(len(g))]
         for r0, rows in blocks:
             r1 = r0 + _n_rows(rows)
+            tracing.count("xfer.h2d_bytes", 4 * len(cols) * (r1 - r0))
             for col, (o, i) in zip(cols, dst):
                 _take(col, rows, o[r0:r1, i], wrap)
         return outs
@@ -113,6 +118,7 @@ def upload_i32_rows(groups: list, n: int, blocks, device,
     turn = 0
     for r0, rows in blocks:
         m = _n_rows(rows)
+        tracing.count("xfer.h2d_bytes", 4 * k * m)
         for c0 in range(0, m, step):
             c1 = min(c0 + step, m)
             sub = (slice(rows.start + c0, rows.start + c1)
